@@ -1,0 +1,80 @@
+"""Carry the JAX package's operators and AMG state into the port.
+
+The functions here take numpy arrays and plain fields — never JAX objects
+by type — so both packages can apply the same hierarchy: a caller turns
+every array of the JAX package's ``SaAmg.state()`` into numpy (for example
+with ``jax.tree_util.tree_map(np.asarray, state)``) and hands it to
+:func:`amg_state_from_jax`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .ops.formats import DiaMatrix, dia_from_host
+from .ops.stencil_op import StencilOp
+from .precond.amg import _structured_block
+
+
+def dia_from_numpy(data, offsets, n_rows: int, n_cols: int, nnz: int,
+                   device=None) -> DiaMatrix:
+    """A DiaMatrix from diagonals stored ``(nd, n_rows_pad)`` or in the JAX
+    package's lane-packed ``(nd, n_rows_pad // 128, 128)`` layout. The
+    element type is kept: float32, float64 or bfloat16."""
+    data = np.array(data)  # a writable copy: torch wraps it without copying
+    data = data.reshape(data.shape[0], -1)
+    if data.dtype.name == "bfloat16":
+        # torch reads no numpy bfloat16; the widening to f32 is exact
+        t = torch.from_numpy(data.astype(np.float32)).to(
+            resolve_device(device), torch.bfloat16)
+        return DiaMatrix(data=t, offsets=tuple(int(o) for o in offsets),
+                         n_rows=n_rows, n_cols=n_cols, nnz=nnz)
+    return dia_from_host(data, offsets, n_rows, n_cols, nnz, data.dtype,
+                         device)
+
+
+def stencil_from_fields(dims, offsets, coeffs, n_rows_pad: int,
+                        dtype="float32") -> StencilOp:
+    """The port's StencilOp with the fields of the JAX package's one."""
+    return StencilOp(dims=tuple(int(d) for d in dims),
+                     offsets=tuple(tuple(int(o) for o in off)
+                                   for off in offsets),
+                     coeffs=tuple(float(c) for c in coeffs),
+                     n_rows_pad=int(n_rows_pad), dtype=str(dtype))
+
+
+def _level_dims(dims, n_levels: int):
+    """Grid dims of each level of a structured hierarchy on ``dims``."""
+    out = [tuple(int(d) for d in dims) + (1,) * (3 - len(dims))]
+    for _ in range(n_levels - 1):
+        block = _structured_block(out[-1])
+        out.append(tuple(d // b for d, b in zip(out[-1], block)))
+    return out
+
+
+def amg_state_from_jax(np_state: dict, dims, device=None) -> dict:
+    """The port's ``SaAmg.state()`` from the JAX package's one with every
+    array already numpy. ``dims`` is the fine grid; each level's operator
+    is checked against the grid it must cover on that hierarchy."""
+    levels = []
+    grid = _level_dims(dims, len(np_state["levels"]))
+    for s, g in zip(np_state["levels"], grid, strict=True):
+        a = s["a"]
+        if hasattr(a, "coeffs"):
+            a_t = stencil_from_fields(a.dims, a.offsets, a.coeffs,
+                                      a.n_rows_pad, a.dtype)
+            if a_t.dims != g:
+                raise ValueError(f"level stencil on {a_t.dims}, "
+                                 f"expected grid {g}")
+        else:
+            a_t = dia_from_numpy(a.data, a.offsets, a.n_rows, a.n_cols,
+                                 a.nnz, device)
+            if a_t.n_rows != int(np.prod(g)):
+                raise ValueError(f"level DIA has {a_t.n_rows} rows, "
+                                 f"expected grid {g}")
+        levels.append({"a": a_t, "dinv": torch.from_numpy(
+            np.array(s["dinv"])).to(resolve_device(device))})
+    coarse_inv = torch.from_numpy(np.array(np_state["coarse_inv"]))
+    return {"levels": levels,
+            "coarse_inv": coarse_inv.to(resolve_device(device))}

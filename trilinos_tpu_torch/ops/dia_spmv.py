@@ -1,0 +1,102 @@
+"""Stored-DIA SpMV: plain PyTorch version and the CUDA kernel wrapper.
+
+Counterpart of the XLA DIA apply in ``trilinos_tpu/ops/matvec.py``
+(``dia_spmm``, ``dia_spmm_t``) and of the TPU kernels in
+``trilinos_tpu/ops/pallas/dia_spmv.py``.
+
+Kernel: ``csrc/dia_spmv.cu`` replaces ``dia_spmm_ring`` for one right-hand
+side and the window kernel ``dia_spmv_pallas``. On an H100 it is bound by
+bytes: (nd·itemsize(data) + 2·itemsize(x))·n_pad over 3.35 TB/s. One
+thread per row loops over the diagonals (coalesced ``data[d, :]`` reads);
+each block reads its own x neighbourhood, since GPU blocks share no
+scratch across steps the way the TPU ring kernel's grid steps did.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+from .dispatch import use_kernel
+from .formats import DiaMatrix
+
+MAX_DIAGS = 512  # csrc/dia_spmv.cu TT_MAX_DIAGS
+
+_P = ctypes.c_void_p
+_SIG = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P]
+_FN = {(torch.float32, torch.float32): "dia_spmv_f32",
+       (torch.float64, torch.float64): "dia_spmv_f64",
+       (torch.bfloat16, torch.float32): "dia_spmv_bf16f32"}
+
+
+def _as_2d(a: DiaMatrix, x: torch.Tensor):
+    x2 = x[:, None] if x.ndim == 1 else x
+    if x2.shape[0] != a.n_rows_pad:
+        raise ValueError(f"DIA spmv: x length {x2.shape[0]} != padded rows "
+                         f"{a.n_rows_pad}")
+    y = torch.zeros(x2.shape, dtype=torch.promote_types(a.dtype, x.dtype),
+                    device=x.device)
+    return x2, y
+
+
+def dia_spmv_plain(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Plain y[i] = Σ_d data[d,i]·x[i+off_d] by rolls (exact, because
+    out-of-range positions store zeros); x is (n_pad,) or (n_pad, k)."""
+    x2, y = _as_2d(a, x)
+    for d, off in enumerate(a.offsets):
+        shifted = torch.roll(x2, -off, dims=0) if off else x2
+        y = y + a.data[d][:, None] * shifted
+    return y[:, 0] if x.ndim == 1 else y
+
+
+def dia_spmv_t_plain(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Transpose apply: yᵀ[j] = Σ_d data[d, j − o_d] · x[j − o_d]."""
+    x2, y = _as_2d(a, x)
+    for d, off in enumerate(a.offsets):
+        term = a.data[d][:, None] * x2
+        y = y + (torch.roll(term, off, dims=0) if off else term)
+    return y[:, 0] if x.ndim == 1 else y
+
+
+@functools.lru_cache(maxsize=64)
+def _offsets(offsets: tuple[int, ...]) -> np.ndarray:
+    return np.asarray(offsets, dtype=np.int32)
+
+
+def dia_spmv(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x: the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor. ``dia_spmv.launches`` counts kernel launches."""
+    if not use_kernel(x):
+        return dia_spmv_plain(a, x)
+    if x.ndim != 1 or x.shape[0] != a.n_rows_pad:
+        raise ValueError(
+            f"DIA kernel takes x of shape ({a.n_rows_pad},), got "
+            f"{tuple(x.shape)} (multivector DIA SpMM is not ported)")
+    fn = _FN.get((a.dtype, x.dtype))
+    if fn is None:
+        raise TypeError(f"DIA kernel takes f32/f32, f64/f64 or bf16/f32 "
+                        f"data/x, got {a.dtype}/{x.dtype}")
+    if not (x.is_contiguous() and a.data.is_contiguous()):
+        raise ValueError("DIA kernel takes contiguous data and x")
+    if a.data.device != x.device:
+        raise ValueError(f"DIA data on {a.data.device}, x on {x.device}")
+    if len(a.offsets) > MAX_DIAGS:
+        raise ValueError(f"DIA kernel takes ≤ {MAX_DIAGS} diagonals, got "
+                         f"{len(a.offsets)}")
+    lib = _build.load("dia_spmv", {f: _SIG for f in _FN.values()})
+    offs = _offsets(a.offsets)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(a.data.data_ptr(), x.data_ptr(), y.data_ptr(),
+                              a.n_rows_pad, len(a.offsets), offs.ctypes.data,
+                              stream)
+    _build.check(lib, rc, "dia_spmv")
+    dia_spmv.launches += 1
+    return y
+
+
+dia_spmv.launches = 0

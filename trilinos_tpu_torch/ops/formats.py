@@ -1,0 +1,171 @@
+"""Local sparse-matrix storage: host CSR and device DIA.
+
+Counterpart of ``trilinos_tpu/ops/formats.py``. ``CsrHost`` is the numpy
+assembly substrate (a copy: the port imports nothing of the JAX package).
+``DiaMatrix`` holds its diagonals as one torch tensor of shape
+``(n_diags, n_rows_pad)``; the JAX package's ``(nd, R, 128)`` lane packing
+is TPU layout and has no counterpart here.
+
+Padding convention (as in the reference): rows added to reach the padded
+row count are identity rows and the matching vector entries are zero, so
+SpMV maps zero padding to zero padding.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..device import numpy_dtype, resolve_device, torch_dtype
+
+ROW_ALIGN = 8  # every padded row count is a multiple of this
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class CsrHost:
+    """Numpy CSR with duplicate-summing construction from COO."""
+
+    def __init__(self, row_ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                 shape: tuple[int, int]):
+        self.row_ptr = np.asarray(row_ptr, dtype=np.int64)
+        self.cols = np.asarray(cols, dtype=np.int32)
+        self.vals = np.asarray(vals)
+        self.shape = shape
+        if self.row_ptr.shape != (shape[0] + 1,):
+            raise ValueError(f"row_ptr length {self.row_ptr.shape[0]} != "
+                             f"{shape[0] + 1}")
+
+    @classmethod
+    def from_coo(cls, rows, cols, vals, shape, sum_duplicates=True) -> "CsrHost":
+        # one stable sort on the fused (row, col) key; duplicates are then
+        # adjacent and merge with one add.reduceat
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        vals = np.asarray(vals)
+        key = rows * np.int64(shape[1]) + cols
+        if not (len(key) and np.all(key[1:] >= key[:-1])):
+            order = np.argsort(key, kind="stable")
+            key, vals = key[order], vals[order]
+        if sum_duplicates and len(key):
+            newseg = np.empty(len(key), dtype=bool)
+            newseg[0] = True
+            np.not_equal(key[1:], key[:-1], out=newseg[1:])
+            starts = np.flatnonzero(newseg)
+            key = key[starts]
+            vals = np.add.reduceat(vals, starts)
+        rows = key // shape[1]
+        cols = key % shape[1]
+        counts = np.bincount(rows, minlength=shape[0])
+        row_ptr = np.zeros(shape[0] + 1, dtype=np.int64)
+        np.cumsum(counts, out=row_ptr[1:])
+        return cls(row_ptr, cols.astype(np.int32), vals, shape)
+
+    @property
+    def nnz(self) -> int:
+        return len(self.cols)
+
+    def row_lengths(self) -> np.ndarray:
+        return np.diff(self.row_ptr)
+
+    def _rows(self) -> np.ndarray:
+        return np.repeat(np.arange(self.shape[0], dtype=np.int64),
+                         self.row_lengths())
+
+    def diagonal(self) -> np.ndarray:
+        d = np.zeros(min(self.shape), dtype=self.vals.dtype)
+        rows = self._rows()
+        hit = (self.cols == rows) & (rows < min(self.shape))
+        # first matching entry per row wins
+        idx = np.flatnonzero(hit)[::-1]
+        d[rows[idx]] = self.vals[idx]
+        return d
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=self.vals.dtype)
+        np.add.at(out, (self._rows(), self.cols), self.vals)
+        return out
+
+    def transpose(self) -> "CsrHost":
+        m, n = self.shape
+        return CsrHost.from_coo(self.cols.astype(np.int64), self._rows(),
+                                self.vals, (n, m))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DiaMatrix:
+    """Diagonal-offset storage: ``y[i] = Σ_d data[d, i] · x[i + offsets[d]]``.
+
+    ``data`` is ``(n_diags, n_rows_pad)``. Positions whose column falls
+    outside the matrix hold zeros, so a cyclic shift of x is exact and a
+    kernel may equally skip them.
+    """
+
+    data: torch.Tensor
+    offsets: tuple[int, ...]
+    n_rows: int
+    n_cols: int
+    nnz: int
+
+    def __post_init__(self):
+        if self.data.ndim != 2 or self.data.shape[0] != len(self.offsets):
+            raise ValueError(
+                f"DIA data shape {tuple(self.data.shape)} does not match "
+                f"{len(self.offsets)} offsets")
+
+    @property
+    def n_rows_pad(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+    def to_dense(self) -> np.ndarray:
+        """Debug helper: the logical (unpadded) dense matrix, float64."""
+        out = np.zeros((self.n_rows, self.n_cols))
+        data = self.data.double().cpu().numpy()
+        rows = np.arange(self.n_rows)
+        for d, off in enumerate(self.offsets):
+            j = rows + off
+            ok = (j >= 0) & (j < self.n_cols)
+            out[rows[ok], j[ok]] += data[d, rows[ok]]
+        return out
+
+
+def dia_from_host(data: np.ndarray, offsets, n_rows: int, n_cols: int,
+                  nnz: int, dtype, device=None) -> DiaMatrix:
+    """Move assembled ``(n_diags, n_rows_pad)`` host data to ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(data))
+    t = t.to(device=resolve_device(device), dtype=torch_dtype(dtype))
+    return DiaMatrix(data=t, offsets=tuple(int(o) for o in offsets),
+                     n_rows=n_rows, n_cols=n_cols, nnz=nnz)
+
+
+def csr_to_dia(a: CsrHost, dtype=None, n_rows_pad: int | None = None,
+               max_diags: int | None = None, device=None) -> DiaMatrix:
+    """Pack host CSR into diagonal-offset storage on ``device``."""
+    m, n = a.shape
+    if n_rows_pad is None:
+        n_rows_pad = round_up(m, ROW_ALIGN)
+    dtype = a.vals.dtype if dtype is None else dtype
+    rows_rep = a._rows()
+    offs = a.cols.astype(np.int64) - rows_rep
+    uniq = np.unique(offs)
+    if max_diags is not None and len(uniq) > max_diags:
+        raise ValueError(f"{len(uniq)} diagonals exceeds limit {max_diags}")
+    data = np.zeros((len(uniq), n_rows_pad), dtype=numpy_dtype(dtype))
+    d_idx = np.searchsorted(uniq, offs)
+    data[d_idx, rows_rep] = a.vals
+    offsets = tuple(int(o) for o in uniq)
+    if m == n and 0 in offsets:
+        # identity padding rows (keeps the Jacobi diagonal invertible)
+        data[offsets.index(0), m:n_rows_pad] = 1.0
+    return dia_from_host(data, offsets, m, n, a.nnz, dtype, device)
