@@ -5,7 +5,9 @@ as the same numpy diagonals) and applied to the same seeded numpy x: the
 JAX side through its XLA reference (``dia_spmm``/``dia_spmm_t``) and its
 Pallas kernels in interpret mode, the port through its DIA wrapper, which
 runs the plain PyTorch version on the CPU. Tolerances are max|Δ| /
-max|y|: 1e-13 in f64; 1e-6 where f32 or bf16 data are summed in f32.
+max|y|: 1e-13 in f64; 1e-6 where f32 or bf16 data are summed in f32;
+1e-5 against the multivector TPU kernels, the tolerance of the JAX
+package's own test of them.
 """
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ from trilinos_tpu.precond import structured as jS
 
 from trilinos_tpu_torch.convert import dia_from_numpy
 from trilinos_tpu_torch.galeri import laplace3d as t_laplace3d
-from trilinos_tpu_torch.ops import csr_to_dia, dia_spmv, spmv
+from trilinos_tpu_torch.ops import csr_to_dia, dia_spmm, dia_spmv, spmv
 from trilinos_tpu_torch.precond import structured as tS
 
 
@@ -122,6 +124,50 @@ def test_bf16_data_f32_x_matches_jax():
     assert rel(y.numpy(), np.asarray(ring).reshape(-1)) <= 1e-6
 
 
+def _jax_packed_kernels(j, x, k):
+    """Every TPU multivector DIA kernel whose plan takes (j, k), in
+    interpret mode, on the packed (k, R, 128) layout; results unpacked to
+    (n_pad, k)."""
+    n = j.n_rows_pad
+    xk = jnp.asarray(x).T.reshape(k, n // 128, 128)
+    out = {}
+    if jD._plan_ring(j.offsets, n, j.data.shape[0], k) is not None:
+        out["ring"] = jD.dia_spmm_ring(j, xk, interpret=True)
+    if jD._plan_mv(j.offsets, n, j.data.shape[0], k) is not None:
+        out["window"] = jD.dia_spmm_packed(j, xk, interpret=True)
+    return {name: np.asarray(y).reshape(k, n).T for name, y in out.items()}
+
+
+@pytest.mark.parametrize("k", [2, 4, 8, 16])
+@pytest.mark.parametrize("data_dtype", ["float32", "bfloat16"])
+def test_multivector_matches_jax_kernels(k, data_dtype):
+    """The TPU kernels the port's multivector DIA kernel replaces
+    (``dia_spmm_ring`` at k > 1 and ``dia_spmm_packed``), in interpret
+    mode, on the JAX package's own test geometry; f32 or bf16 data, f32 x
+    and sums."""
+    j32 = j_laplace3d(32, 16, 16, dtype=np.float32, fmt="dia")
+    data = np.asarray(j32.data)
+    if data_dtype == "bfloat16":
+        scale = np.random.default_rng(10).uniform(0.5, 2.0, (7, 1, 1))
+        data = (data * scale).astype(np.float32)
+    j = jF.DiaMatrix(data=jnp.asarray(data).astype(data_dtype),
+                     offsets=j32.offsets, n_rows=j32.n_rows,
+                     n_cols=j32.n_cols, nnz=j32.nnz)
+    t = dia_from_numpy(np.asarray(j.data), j.offsets, j.n_rows, j.n_cols,
+                       j.nnz, device="cpu")
+    x = np.zeros((t.n_rows_pad, k), np.float32)
+    x[:t.n_rows] = np.random.default_rng(11).standard_normal((t.n_rows, k))
+    y = dia_spmv(t, torch.from_numpy(x))
+    assert y.dtype == torch.float32 and y.shape == (t.n_rows_pad, k)
+    np.testing.assert_array_equal(
+        dia_spmm(t, torch.from_numpy(x)).numpy(), y.numpy())
+    kernels = _jax_packed_kernels(j, x, k)
+    assert kernels, "no TPU kernel plans this case"
+    for name, want in kernels.items():
+        assert rel(y.numpy(), want) <= 1e-5, name
+    assert rel(y.numpy(), jmv.dia_spmm(j, jnp.asarray(x))) <= 1e-6
+
+
 def _random_dia(seed):
     """Random nonsymmetric diagonals with zeros where the column falls
     outside the matrix (the DIA storage invariant)."""
@@ -161,5 +207,9 @@ def test_multivector_and_shape_checks():
             yk[:, c], spmv(t, torch.from_numpy(xk[:, c].copy())).numpy())
     with pytest.raises(ValueError, match="x length"):
         dia_spmv(t, torch.zeros(n_pad + 8, dtype=torch.float64))
+    with pytest.raises(ValueError, match="x length"):
+        dia_spmm(t, torch.zeros((n_pad + 8, 2), dtype=torch.float64))
+    with pytest.raises(ValueError, match="not supported"):
+        dia_spmm(t, torch.zeros((n_pad, 2), device="meta"))
     with pytest.raises(ValueError, match="does not match"):
         dia_from_numpy(data[:3], offsets, n, n, 0, device="cpu")

@@ -22,7 +22,7 @@ from trilinos_tpu.precond import SaAmg as JSaAmg
 from trilinos_tpu.solvers import cg as j_cg
 
 import trilinos_tpu_torch
-from trilinos_tpu_torch.entry import entry
+from trilinos_tpu_torch.entry import block_entry, entry
 from trilinos_tpu_torch.ops import dia_spmv, stencil_spmv
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -86,6 +86,10 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "trilinos_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"trilinos_tpu_torch/ops/smalldense.py",
+            "trilinos_tpu_torch/solvers/ortho.py",
+            "trilinos_tpu_torch/solvers/block_gmres.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -97,6 +101,8 @@ def test_default_device_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        block_entry()
     from trilinos_tpu_torch.galeri import laplace3d
     from trilinos_tpu_torch.precond import SaAmg
 

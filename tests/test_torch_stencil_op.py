@@ -5,7 +5,8 @@ kernels in interpret mode where their plans apply, else the XLA
 reference ``stencil_spmv_xla``) and through ``trilinos_tpu_torch`` on the
 CPU, where the kernel wrapper runs its plain PyTorch version.
 Tolerances are max|Δ| / max|y|: 1e-6 in f32 (the Pallas kernels add the
-terms in another order), 1e-13 in f64.
+terms in another order), 1e-13 in f64; 1e-5 for the multivector kernel
+in f32, the tolerance of the JAX package's own test of it.
 """
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ from trilinos_tpu.ops import matvec as jmv
 from trilinos_tpu.ops.pallas import stencil_op as jso
 
 from trilinos_tpu_torch.galeri import stencils as tst
-from trilinos_tpu_torch.ops import StencilOp, spmv, stencil_spmv
+from trilinos_tpu_torch.ops import StencilOp, spmv, stencil_spmm, stencil_spmv
 from trilinos_tpu_torch.ops.stencil_op import stencil_spmv_plain
 
 LAP3 = [((0, 0, 0), 6.0), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
@@ -116,6 +117,41 @@ def test_multivector_columns():
             yk[:, j], spmv(top, torch.from_numpy(xk[:, j].copy())).numpy())
 
 
+def rand_xk(op, k, dtype, seed, fill_pad=False):
+    x = np.zeros((op.n_rows_pad, k), dtype)
+    n = op.n_rows_pad if fill_pad else op.n_rows
+    x[:n] = np.random.default_rng(seed).standard_normal((n, k))
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 16])
+def test_multivector_f32_matches_jax_kernel(k):
+    """The TPU multivector kernel (``stencil_spmm_packed`` behind
+    ``stencil_spmm_pallas``) in interpret mode, on the geometry of the JAX
+    package's own test."""
+    jop, top = both((32, 32, 8), LAP3)
+    assert jso.stencil_spmm_applicable(jop, k)
+    x = rand_xk(top, k, np.float32, seed=6)
+    y = stencil_spmv(top, torch.from_numpy(x)).numpy()
+    assert y.shape == (top.n_rows_pad, k) and y.dtype == np.float32
+    want = jso.stencil_spmm_pallas(jop, jnp.asarray(x), interpret=True)
+    assert rel(y, want) <= 1e-5
+    # a 2-D x through stencil_spmv is stencil_spmm
+    np.testing.assert_array_equal(
+        stencil_spmm(top, torch.from_numpy(x)).numpy(), y)
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_multivector_padded_rows_are_identity(k):
+    """A grid whose rows do not fill the padding (10×10×8: 800 rows in
+    1024), the small geometry the card check uses too."""
+    jop, top = both((10, 10, 8), LAP3, dtype="float64")
+    x = rand_xk(top, k, np.float64, seed=7, fill_pad=True)
+    y = stencil_spmm(top, torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(y[top.n_rows:], x[top.n_rows:])
+    assert rel(y, jso.stencil_spmv_xla(jop, jnp.asarray(x))) <= 1e-13
+
+
 def test_galeri_emit_matches_jax():
     jop = jst.laplace3d(12, 10, 6, fmt="stencil")
     top = tst.laplace3d(12, 10, 6, fmt="stencil")
@@ -133,3 +169,13 @@ def test_wrapper_refuses_other_devices():
         stencil_spmv(top, x)
     with pytest.raises(ValueError, match="x length"):
         stencil_spmv_plain(top, torch.zeros(top.n_rows_pad + 8))
+
+
+def test_multivector_wrapper_refuses_other_devices():
+    _, top = both((8, 8, 8), LAP3)
+    x = torch.zeros((top.n_rows_pad, 4), device="meta")
+    for fn in (stencil_spmv, stencil_spmm):
+        with pytest.raises(ValueError, match="not supported"):
+            fn(top, x)
+    with pytest.raises(ValueError, match="x length"):
+        stencil_spmm(top, torch.zeros((top.n_rows_pad + 8, 4)))

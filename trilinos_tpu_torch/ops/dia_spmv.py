@@ -10,6 +10,12 @@ bytes: (nd·itemsize(data) + 2·itemsize(x))·n_pad over 3.35 TB/s. One
 thread per row loops over the diagonals (coalesced ``data[d, :]`` reads);
 each block reads its own x neighbourhood, since GPU blocks share no
 scratch across steps the way the TPU ring kernel's grid steps did.
+
+The multivector apply (x of shape (n_pad, k), row-major) is the same
+file's ``dia_mv_kernel``: it replaces ``dia_spmm_ring`` at k > 1 and the
+window kernel ``dia_spmm_packed``. Bound by bytes, (nd·itemsize(data) +
+2·k·itemsize(x))·n_pad. One thread per (row, column), column fastest: the
+k threads of a row share one ``data[d, i]`` load and read k contiguous x.
 """
 from __future__ import annotations
 
@@ -26,10 +32,13 @@ from .formats import DiaMatrix
 MAX_DIAGS = 512  # csrc/dia_spmv.cu TT_MAX_DIAGS
 
 _P = ctypes.c_void_p
-_SIG = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P]
-_FN = {(torch.float32, torch.float32): "dia_spmv_f32",
-       (torch.float64, torch.float64): "dia_spmv_f64",
-       (torch.bfloat16, torch.float32): "dia_spmv_bf16f32"}
+_I = ctypes.c_int
+_SIG = [_P, _P, _P, ctypes.c_longlong, _I, _P, _P]
+_SIG_MV = _SIG[:4] + [_I] + _SIG[4:]
+_TYPES = {(torch.float32, torch.float32): "f32",
+          (torch.float64, torch.float64): "f64",
+          (torch.bfloat16, torch.float32): "bf16f32"}
+MAX_COLS = 1024  # csrc/dia_spmv.cu TT_MAX_COLS
 
 
 def _as_2d(a: DiaMatrix, x: torch.Tensor):
@@ -66,17 +75,11 @@ def _offsets(offsets: tuple[int, ...]) -> np.ndarray:
     return np.asarray(offsets, dtype=np.int32)
 
 
-def dia_spmv(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x: the CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor. ``dia_spmv.launches`` counts kernel launches."""
-    if not use_kernel(x):
-        return dia_spmv_plain(a, x)
-    if x.ndim != 1 or x.shape[0] != a.n_rows_pad:
-        raise ValueError(
-            f"DIA kernel takes x of shape ({a.n_rows_pad},), got "
-            f"{tuple(x.shape)} (multivector DIA SpMM is not ported)")
-    fn = _FN.get((a.dtype, x.dtype))
-    if fn is None:
+def _launch(kind: str, a: DiaMatrix, x: torch.Tensor, *cols) -> torch.Tensor:
+    """Checks shared by both kernels, then one launch of
+    ``dia_<kind>_<types>``; ``cols`` is () or (k,)."""
+    types = _TYPES.get((a.dtype, x.dtype))
+    if types is None:
         raise TypeError(f"DIA kernel takes f32/f32, f64/f64 or bf16/f32 "
                         f"data/x, got {a.dtype}/{x.dtype}")
     if not (x.is_contiguous() and a.data.is_contiguous()):
@@ -86,17 +89,53 @@ def dia_spmv(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     if len(a.offsets) > MAX_DIAGS:
         raise ValueError(f"DIA kernel takes ≤ {MAX_DIAGS} diagonals, got "
                          f"{len(a.offsets)}")
-    lib = _build.load("dia_spmv", {f: _SIG for f in _FN.values()})
+    lib = _build.load("dia_spmv", {
+        f"dia_{kd}_{t}": sig for kd, sig in (("spmv", _SIG),
+                                              ("spmm", _SIG_MV))
+        for t in _TYPES.values()})
     offs = _offsets(a.offsets)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, fn)(a.data.data_ptr(), x.data_ptr(), y.data_ptr(),
-                              a.n_rows_pad, len(a.offsets), offs.ctypes.data,
-                              stream)
-    _build.check(lib, rc, "dia_spmv")
+        rc = getattr(lib, f"dia_{kind}_{types}")(
+            a.data.data_ptr(), x.data_ptr(), y.data_ptr(), a.n_rows_pad,
+            *cols, len(a.offsets), offs.ctypes.data, stream)
+    _build.check(lib, rc, f"dia_{kind}")
+    return y
+
+
+def dia_spmv(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for x of shape (n_pad,) or (n_pad, k): the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor. A 2-D x goes to
+    :func:`dia_spmm`. ``dia_spmv.launches`` counts launches of the
+    single-vector kernel."""
+    if x.ndim == 2:
+        return dia_spmm(a, x)
+    if not use_kernel(x):
+        return dia_spmv_plain(a, x)
+    if x.ndim != 1 or x.shape[0] != a.n_rows_pad:
+        raise ValueError(f"DIA kernel takes x of shape ({a.n_rows_pad},) or "
+                         f"({a.n_rows_pad}, k), got {tuple(x.shape)}")
+    y = _launch("spmv", a, x)
     dia_spmv.launches += 1
     return y
 
 
+def dia_spmm(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Y = A·X for X of shape (n_pad, k), k ≥ 1, row-major: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor.
+    ``dia_spmm.launches`` counts kernel launches."""
+    if not use_kernel(x):
+        return dia_spmv_plain(a, x)
+    if x.ndim != 2 or x.shape[0] != a.n_rows_pad or not (
+            1 <= x.shape[1] <= MAX_COLS):
+        raise ValueError(f"DIA SpMM kernel takes X of shape "
+                         f"({a.n_rows_pad}, k), 1 ≤ k ≤ {MAX_COLS}, got "
+                         f"{tuple(x.shape)}")
+    y = _launch("spmm", a, x, x.shape[1])
+    dia_spmm.launches += 1
+    return y
+
+
 dia_spmv.launches = 0
+dia_spmm.launches = 0

@@ -3,9 +3,9 @@
 Counterpart of ``trilinos_tpu/ops/matvec.py`` for the formats of this
 slice: the matrix-free :class:`StencilOp` and the stored
 :class:`DiaMatrix`. x is (n_pad,) or (n_pad, k); y keeps the padding.
-Single vectors on the card go through the hand-written kernels; the DIA
-transpose is plain PyTorch on every device, as the JAX package leaves it
-to XLA.
+Vectors and multivectors on the card go through the hand-written kernels;
+the DIA transpose is plain PyTorch on every device, as the JAX package
+leaves it to XLA.
 """
 from __future__ import annotations
 

@@ -14,6 +14,14 @@ bottleneck; here one thread per grid point takes ix, iy, iz straight from
 a 3-D launch grid (no integer division) and reads its neighbours through
 L1/L2. Terms are summed in offset order without fused multiply-add, so
 the kernel matches :func:`stencil_spmv_plain` to the last bit.
+
+The multivector apply (x of shape (n_pad, k), row-major, the JAX
+package's public layout) is the same file's ``stencil_mv_kernel``; it
+replaces ``stencil_spmm_packed`` (``_plane_kernel_mv``). Bound by bytes,
+2·n·k·itemsize over 3.35 TB/s (≈ 0.641 ms for 256³, k = 16, f32). One
+thread per (row, column), column fastest, so each row's k values are one
+contiguous load; the JAX wrapper's transposes to (k, R, 128) were TPU
+layout work and the port has none.
 """
 from __future__ import annotations
 
@@ -123,9 +131,12 @@ def stencil_spmv_plain(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
 
 
 _P = ctypes.c_void_p
-_SIG = [_P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P]
-_FN = {torch.float32: "stencil_spmv_f32", torch.float64: "stencil_spmv_f64"}
+_I = ctypes.c_int
+_SIG = [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _P]
+_SIG_MV = _SIG[:7] + [_I] + _SIG[7:]
+_TYPES = {torch.float32: "f32", torch.float64: "f64"}
+MAX_COLS = 1024  # csrc/stencil_spmv.cu TT_MAX_COLS
 
 
 @functools.lru_cache(maxsize=64)
@@ -138,16 +149,10 @@ def _terms(op: StencilOp):
             np.asarray(op.coeffs, dtype=np.float64))
 
 
-def stencil_spmv(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x: the CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor. ``stencil_spmv.launches`` counts kernel launches."""
-    if not use_kernel(x):
-        return stencil_spmv_plain(op, x)
-    if x.ndim != 1 or x.shape[0] != op.n_rows_pad:
-        raise ValueError(
-            f"stencil kernel takes x of shape ({op.n_rows_pad},), got "
-            f"{tuple(x.shape)} (multivector stencil SpMM is not ported)")
-    if x.dtype not in _FN:
+def _launch(kind: str, op: StencilOp, x: torch.Tensor, *cols) -> torch.Tensor:
+    """Checks shared by both kernels, then one launch of
+    ``stencil_<kind>_<type>``; ``cols`` is () or (k,)."""
+    if x.dtype not in _TYPES:
         raise TypeError(f"stencil kernel takes float32/float64, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("stencil kernel takes a contiguous x")
@@ -155,18 +160,55 @@ def stencil_spmv(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
     if len(op.offsets) > MAX_TERMS or ny > MAX_GRID_YZ or nz > MAX_GRID_YZ:
         raise ValueError(f"stencil kernel takes ≤ {MAX_TERMS} terms and "
                          f"ny, nz ≤ {MAX_GRID_YZ}")
-    lib = _build.load("stencil_spmv", {f: _SIG for f in _FN.values()})
+    lib = _build.load("stencil_spmv", {
+        f"stencil_{kd}_{t}": sig for kd, sig in (("spmv", _SIG),
+                                                  ("spmm", _SIG_MV))
+        for t in _TYPES.values()})
     dx, dy, dz, lin, c = _terms(op)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, _FN[x.dtype])(
+        rc = getattr(lib, f"stencil_{kind}_{_TYPES[x.dtype]}")(
             x.data_ptr(), y.data_ptr(), op.n_rows, op.n_rows_pad, nx, ny, nz,
-            len(op.offsets), dx.ctypes.data, dy.ctypes.data, dz.ctypes.data,
-            lin.ctypes.data, c.ctypes.data, stream)
-    _build.check(lib, rc, "stencil_spmv")
+            *cols, len(op.offsets), dx.ctypes.data, dy.ctypes.data,
+            dz.ctypes.data, lin.ctypes.data, c.ctypes.data, stream)
+    _build.check(lib, rc, f"stencil_{kind}")
+    return y
+
+
+def stencil_spmv(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for x of shape (n_pad,) or (n_pad, k): the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor. A 2-D x goes to
+    :func:`stencil_spmm`. ``stencil_spmv.launches`` counts launches of the
+    single-vector kernel."""
+    if x.ndim == 2:
+        return stencil_spmm(op, x)
+    if not use_kernel(x):
+        return stencil_spmv_plain(op, x)
+    if x.ndim != 1 or x.shape[0] != op.n_rows_pad:
+        raise ValueError(f"stencil kernel takes x of shape "
+                         f"({op.n_rows_pad},) or ({op.n_rows_pad}, k), got "
+                         f"{tuple(x.shape)}")
+    y = _launch("spmv", op, x)
     stencil_spmv.launches += 1
     return y
 
 
+def stencil_spmm(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
+    """Y = A·X for X of shape (n_pad, k), k ≥ 1, row-major: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor.
+    ``stencil_spmm.launches`` counts kernel launches."""
+    if not use_kernel(x):
+        return stencil_spmv_plain(op, x)
+    if x.ndim != 2 or x.shape[0] != op.n_rows_pad or not (
+            1 <= x.shape[1] <= MAX_COLS):
+        raise ValueError(f"stencil SpMM kernel takes X of shape "
+                         f"({op.n_rows_pad}, k), 1 ≤ k ≤ {MAX_COLS}, got "
+                         f"{tuple(x.shape)}")
+    y = _launch("spmm", op, x, x.shape[1])
+    stencil_spmm.launches += 1
+    return y
+
+
 stencil_spmv.launches = 0
+stencil_spmm.launches = 0

@@ -217,6 +217,7 @@ class SaAmg(Preconditioner):
         op = self._stencil
         dtype = torch_dtype(p["dtype"] or op.dtype)
         self.fine_op = op
+        self.dtype = dtype
         metas, coarsest_csr, coarsest_npad = build_classified_hierarchy(
             op, int(p["max levels"]), int(p["coarse: max size"]),
             float(p["sa: damping factor"]),
