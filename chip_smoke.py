@@ -4,22 +4,26 @@
 
 Builds the hand-written CUDA kernels from ``trilinos_tpu_torch/csrc/``,
 holds each against its plain PyTorch version on the card at every shape the
-main paths give it, and drives both main paths on one 256³ Laplace3D
-structured-AMG hierarchy:
+paths give it, and drives five paths on the 256³ Laplace3D stencil, each
+once through the kernels and once through the plain versions:
 
-* structured-AMG-preconditioned CG (``entry``), once through the kernels
-  and once through the plain versions;
-* AMG-preconditioned block GMRES, nrhs = 16, CGS2 + CholQR2
-  (``block_entry``), the same two ways, one after the other.
+* structured-AMG-preconditioned CG (``entry``) and AMG-preconditioned
+  block GMRES, nrhs = 16, CGS2 + CholQR2 (``block_entry``), on one
+  hierarchy with the damped-Jacobi smoother;
+* AMG-PCG with the Chebyshev smoother (``cheb_entry``) on a second
+  hierarchy;
+* s-step GMRES with the matrix-powers basis (``sstep_entry``);
+* fused-iteration CG (``fused_cg_entry``).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. It times each warm solve, times each kernel beside its
-bound, its plain version and one PyTorch library call, profiles one solve
-of each path (device time by kernel), and ends with one JSON line naming
-the device. Any failure exits non-zero; without a CUDA device it exits
-non-zero before doing anything.
+bound, its plain version and one PyTorch library call where there is one,
+profiles one solve of each path (device time by kernel), and ends with one
+JSON line naming the device. Any failure exits non-zero; without a CUDA
+device it exits non-zero before doing anything.
 """
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -47,6 +51,16 @@ CHOL_TOL = {"vs_plain": 1e-4, "llt": 1e-5, "inv": 1e-4}
 # the kernel and plain block solves stop at rtol 1e-5 along slightly
 # different rounding, so their x agree to about the tolerance, not better
 BLOCK_X_TOL = 1e-4
+# cg_fused sums its dots per block in double, the plain version with
+# torch.sum in f32; the difference in α, β compounds over the iterations.
+# On an H100 the chained vectors and scal read at most 1.24e-6 and the
+# 100-iteration x 1.15e-6: the gates sit about 10× above.
+CG_FUSED_TOL = 1e-5  # five chained iterations: vectors and scal
+FUSED_CG_X_TOL = 1e-5  # the first 100 iterations of the fused-CG path
+# s-step GMRES: chol_inv_small agrees with its plain version to a
+# tolerance, so the CholQR2 bases of the two runs differ by rounding
+SSTEP_TOL = 1e-4  # per-cycle residual norms and x
+FUSED_CG_ITERS = 100
 BATCH, SAMPLES = 10, 25
 
 
@@ -138,25 +152,31 @@ def counts(wrappers):
 
 
 def zero(wrappers):
+    """Set every count to 0, the stage counts of the polynomial wrappers
+    too."""
     for fn in wrappers.values():
         fn.launches = 0
+        if hasattr(fn, "stage_launches"):
+            fn.stage_launches = 0
 
 
-def run_marked(step, args, amg_cls, wrappers):
+def run_marked(step, args, owner, attr, wrappers):
     """Run ``step(*args)`` with the counts set to 0, recording them at each
-    preconditioner call. Returns (result, wall ms, counts, most common
-    count moves between two preconditioner calls, all moves)."""
+    call of ``owner.attr`` (once per iteration or block step: the
+    preconditioner, the block projection, the fused iteration). Returns
+    (result, wall ms, counts, most common count moves between two marks,
+    all moves)."""
     marks = []
-    apply_state = amg_cls.apply_state
+    inner = getattr(owner, attr)
 
-    def marked(self, st, r):
+    def marked(*a, **k):
         marks.append(tuple(counts(wrappers).values()))
-        return apply_state(self, st, r)
+        return inner(*a, **k)
 
     zero(wrappers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with mock.patch.object(amg_cls, "apply_state", marked):
+    with mock.patch.object(owner, attr, marked):
         res = step(*args)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
@@ -164,7 +184,7 @@ def run_marked(step, args, amg_cls, wrappers):
         tuple(b - a for a, b in zip(m0, m1))
         for m0, m1 in zip(marks, marks[1:]))
     if not gaps:
-        fail("a main path ran fewer than two preconditioner calls")
+        fail(f"a path made fewer than two calls of {attr}")
     per = dict(zip(wrappers, gaps.most_common(1)[0][0]))
     return res, ms, counts(wrappers), per, dict(gaps)
 
@@ -194,21 +214,45 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
 
-    from trilinos_tpu_torch.entry import block_entry, entry
+    import importlib
+
+    from trilinos_tpu_torch.entry import (block_entry, cheb_entry, entry,
+                                          fused_cg_entry, sstep_entry)
     from trilinos_tpu_torch.galeri import laplace3d
     from trilinos_tpu_torch.galeri.stencils import cross3d_stencil
-    from trilinos_tpu_torch.ops import (StencilOp, chol_inv_small,
-                                        chol_inv_small_plain, dia_spmm,
-                                        dia_spmv, dia_spmv_plain,
-                                        stencil_spmm, stencil_spmv,
-                                        stencil_spmv_plain)
+    from trilinos_tpu_torch.ops import (StencilOp, cg_fused_iteration,
+                                        cg_fused_iteration_plain,
+                                        chol_inv_small, chol_inv_small_plain,
+                                        dia_spmm, dia_spmv, dia_spmv_plain,
+                                        stencil_poly_apply,
+                                        stencil_poly_plain,
+                                        stencil_powers_apply,
+                                        stencil_powers_plain, stencil_spmm,
+                                        stencil_spmv, stencil_spmv_plain)
     from trilinos_tpu_torch.ops import _build, matvec, smalldense
+    from trilinos_tpu_torch.ops.stencil_poly import (monomial_stages,
+                                                     stencil_chebyshev_setup)
     from trilinos_tpu_torch.precond import SaAmg
+    from trilinos_tpu_torch.precond.structured import ClassifiedStencil
+    from trilinos_tpu_torch.solvers.sstep_gmres import newton_basis_stages
+
+    # the package attributes of these names are functions, not modules
+    cg_mod = importlib.import_module("trilinos_tpu_torch.solvers.cg")
+    sstep_mod = importlib.import_module(
+        "trilinos_tpu_torch.solvers.sstep_gmres")
+    cheb_mod = importlib.import_module("trilinos_tpu_torch.precond.chebyshev")
 
     cg_kernels = {"stencil_spmv": stencil_spmv, "dia_spmv": dia_spmv}
     block_kernels = {"stencil_spmm": stencil_spmm, "dia_spmm": dia_spmm,
                      "chol_inv_small": chol_inv_small}
-    all_kernels = {**cg_kernels, **block_kernels}
+    cheb_kernels = {"stencil_poly": stencil_poly_apply, **cg_kernels}
+    sstep_kernels = {"stencil_powers": stencil_powers_apply,
+                     "chol_inv_small": chol_inv_small,
+                     "stencil_spmv": stencil_spmv}
+    fused_kernels = {"cg_fused": cg_fused_iteration,
+                     "stencil_spmv": stencil_spmv}
+    all_kernels = {**cg_kernels, **block_kernels, **cheb_kernels,
+                   **sstep_kernels, **fused_kernels}
 
     # -- 1. the card ---------------------------------------------------------
     card = subprocess.run(
@@ -318,9 +362,84 @@ def main():
     log(f"check chol_inv_small k=1..32 (random and scaled panels): all "
         f"within {CHOL_TOL}")
 
+    # -- 5b. stencil polynomial and fused CG iteration kernels ---------------
+    # the Chebyshev AMG smoother's stages (degree 3, Gershgorin λmax, as
+    # SaAmg builds them) and the s-step bases: monomial σ = 12 and Newton
+    # with one conjugate pair; every case bitwise
+    cheb3 = stencil_chebyshev_setup(fine, 3, lmax=ClassifiedStencil
+                                    .from_constant(fine.offsets, fine.coeffs)
+                                    .gershgorin())
+    mono4 = monomial_stages(4, 12.0)
+    newton4 = tuple((a, bt, g, 0.0) for a, bt, g in newton_basis_stages(
+        [11.5, 6.0 + 2.5j, 6.0 - 2.5j, 0.8], 12.0))
+    poly_cases = [  # label, dims, n_pad, z bounds, dtype, stages, powers
+        (f"{GRID} f32 Chebyshev s=3", DIMS, None, None, torch.float32,
+         cheb3, False),
+        (f"{GRID} f32 monomial s=4", DIMS, None, None, torch.float32, mono4,
+         True),
+        (f"{GRID} f32 Newton s=4 (one conjugate pair)", DIMS, None, None,
+         torch.float32, newton4, True),
+        ("16^3 f32 pad rows (n_pad 5120) Chebyshev", (16, 16, 16), 5120,
+         None, torch.float32, cheb3, False),
+        ("16^3 f32 pad rows (n_pad 5120) monomial", (16, 16, 16), 5120, None,
+         torch.float32, mono4, True),
+        ("64^3 f32 z bounds (3, 60) Chebyshev", (64, 64, 64), None, (3, 60),
+         torch.float32, cheb3, False),
+        ("64^3 f32 z bounds (3, 60) Newton", (64, 64, 64), None, (3, 60),
+         torch.float32, newton4, True),
+        ("128^3 f64 Chebyshev", (128, 128, 128), None, None, torch.float64,
+         cheb3, False),
+        ("128^3 f64 monomial", (128, 128, 128), None, None, torch.float64,
+         mono4, True)]
+    for i, (label, dims, npad, zb, dt, stages, powers) in enumerate(
+            poly_cases):
+        op = StencilOp.create(dims, lap, n_rows_pad=npad)
+        x = randn(op.n_rows_pad, dt, seed=300 + i)
+        name, kern, plain = (
+            ("stencil_powers", stencil_powers_apply, stencil_powers_plain)
+            if powers else
+            ("stencil_poly", stencil_poly_apply, stencil_poly_plain))
+        y = kern(op, stages, x, z_bounds=zb)
+        torch.cuda.synchronize()
+        err[name] = max(err[name], check(
+            f"{name} {label}", y, plain(op, stages, x, z_bounds=zb), 0.0))
+        del x, y
+    # one fused CG iteration from the same state: the five vectors bitwise
+    # and scal to the tolerance (max_abs_err reads the iterations held to
+    # the bit); then five chained iterations, each side on its own outputs;
+    # then a sixth from the plain chain's state on both sides, where β and
+    # α_prev are not 0, again bitwise
+    b0 = randn(fine.n_rows_pad, torch.float32, seed=400)
+    w0 = stencil_spmv_plain(fine, b0)
+    zeros = torch.zeros_like(b0)
+    scal0 = torch.stack([b0 @ b0, b0 @ w0, zeros[0], zeros[0] + 1]).reshape(
+        1, 4)
+    k_state = p_state = (zeros, b0, w0, zeros, zeros, scal0)
+    names = ("x", "r", "w", "p", "q", "scal")
+    for it in range(5):
+        k_state = cg_fused_iteration(fine, *k_state)
+        p_state = cg_fused_iteration_plain(fine, *p_state)
+        torch.cuda.synchronize()
+        step_label = "iteration 1" if it == 0 else f"chained iteration {it + 1}"
+        for nm, got, want in zip(names, k_state, p_state):
+            e = check(f"cg_fused {GRID} f32 {step_label} {nm}", got, want,
+                      CG_FUSED_TOL if nm == "scal" or it else 0.0)
+            if it == 0:
+                err["cg_fused"] = max(err["cg_fused"], e)
+    rz, _, rz_prev, alpha_prev = p_state[5][0].tolist()
+    k_state = cg_fused_iteration(fine, *p_state)
+    p_state = cg_fused_iteration_plain(fine, *p_state)
+    torch.cuda.synchronize()
+    for nm, got, want in zip(names, k_state, p_state):
+        err["cg_fused"] = max(err["cg_fused"], check(
+            f"cg_fused {GRID} f32 iteration 6 from the plain chain's state "
+            f"(β {rz / rz_prev:.6g}, α_prev {alpha_prev:.6g}) {nm}", got,
+            want, CG_FUSED_TOL if nm == "scal" else 0.0))
+    del k_state, p_state, b0, w0, zeros
+
     # -- 6. the CG path, then the plain versions as reference ----------------
     res, solve_ms, cg_launches, cg_per, cg_gaps = run_marked(
-        step, (b, state), SaAmg, cg_kernels)
+        step, (b, state), SaAmg, "apply_state", cg_kernels)
     iters = int(res.iters)
     log(f"CG path: converged {bool(res.converged)} iters {iters} "
         f"first solve {solve_ms:.1f} ms launches {cg_launches}; launches "
@@ -339,10 +458,12 @@ def main():
         fail(f"true residual {true_rel:.3e} > {RTOL}")
 
     plain_patches = (
-        mock.patch.object(matvec, "stencil_spmv", stencil_spmv_plain),
-        mock.patch.object(matvec, "dia_spmv", dia_spmv_plain),
-        mock.patch.object(smalldense, "chol_inv_small",
-                          chol_inv_small_plain))
+        (matvec, "stencil_spmv", stencil_spmv_plain),
+        (matvec, "dia_spmv", dia_spmv_plain),
+        (smalldense, "chol_inv_small", chol_inv_small_plain),
+        (cheb_mod, "stencil_poly_apply", stencil_poly_plain),
+        (sstep_mod, "stencil_powers_apply", stencil_powers_plain),
+        (cg_mod, "cg_fused_iteration", cg_fused_iteration_plain))
 
     def plain_run(fn, *args):
         """fn(*args) with the plain versions patched in for every kernel;
@@ -350,7 +471,9 @@ def main():
         before = counts(all_kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with plain_patches[0], plain_patches[1], plain_patches[2]:
+        with contextlib.ExitStack() as stack:
+            for owner, attr, plain in plain_patches:
+                stack.enter_context(mock.patch.object(owner, attr, plain))
             out = fn(*args)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
@@ -385,7 +508,7 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     bres, bsolve_ms, b_launches, b_per, b_gaps = run_marked(
-        bstep, (bb, bstate), SaAmg, block_kernels)
+        bstep, (bb, bstate), SaAmg, "apply_state", block_kernels)
     bpeak = torch.cuda.max_memory_allocated() / 2**30
     steps = int(bres.iters)
     log(f"block path: converged {bres.converged.tolist()} block steps "
@@ -426,6 +549,128 @@ def main():
     torch.cuda.synchronize()
     bwarm_ms = (time.perf_counter() - t0) * 1e3
 
+    def warm(fn, *args):
+        """Wall ms of a second, warm run of fn(*args)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def true_residual(x, rhs):
+        r64 = rhs.double()
+        return float(torch.linalg.vector_norm(
+            r64 - stencil_spmv_plain(fine, x.double()))
+            / torch.linalg.vector_norm(r64))
+
+    # -- 7b. AMG-PCG with the Chebyshev smoother: a second hierarchy -------
+    t0 = time.perf_counter()
+    camg = SaAmg(fine, {"dtype": np.float32, "smoother: type": "chebyshev"},
+                 device="cuda").compute()
+    cstep, (cb, cstate) = cheb_entry(amg=camg)
+    torch.cuda.synchronize()
+    log(f"setup {GRID} Chebyshev hierarchy: {time.perf_counter() - t0:.2f} s")
+    cres, csolve_ms, c_launches, c_per, c_gaps = run_marked(
+        cstep, (cb, cstate), SaAmg, "apply_state", cheb_kernels)
+    c_stages = stencil_poly_apply.stage_launches
+    citers = int(cres.iters)
+    c_true = true_residual(cres.x, cb)
+    log(f"Chebyshev path: converged {bool(cres.converged)} iters {citers} "
+        f"first solve {csolve_ms:.1f} ms launches {c_launches}; launches "
+        f"between preconditioner calls {c_gaps}; stencil_poly stage "
+        f"launches {c_stages}; true relative residual (plain operator, f64) "
+        f"{c_true:.3e}")
+    if not bool(cres.converged) or not c_true <= RTOL:
+        fail(f"Chebyshev path: converged {bool(cres.converged)}, true "
+             f"residual {c_true:.3e}")
+    # the fine level's 4 Jacobi sweeps become 2 polynomial applies (pre and
+    # post); the coarse DIA levels smooth as on the Jacobi path
+    if c_per != {"stencil_poly": 2, "stencil_spmv": 5,
+                 "dia_spmv": cg_per["dia_spmv"]}:
+        fail(f"Chebyshev path launches per iteration {c_per}")
+    cref, cplain_ms = plain_run(cstep, cb, cstate)
+    crel_x, _ = rel_err(cres.x, cref.x)
+    log(f"Chebyshev plain reference: converged {bool(cref.converged)} iters "
+        f"{int(cref.iters)} solve {cplain_ms:.1f} ms; max|Δx|/max|x| = "
+        f"{crel_x:.3e}")
+    if abs(int(cref.iters) - citers) > 1 or not crel_x <= TOL[torch.float32]:
+        fail(f"Chebyshev kernel and plain solves differ: iters {citers} vs "
+             f"{int(cref.iters)}, x {crel_x:.3e}")
+    del cref
+    cwarm_ms = warm(cstep, cb, cstate)
+
+    # -- 7c. s-step GMRES with the matrix-powers basis ---------------------
+    sstep, (sb,) = sstep_entry(dims=DIMS, device="cuda")
+    norms = []
+    norm2 = sstep_mod.norm2
+
+    def recorded(*a):
+        out = norm2(*a)
+        norms.append(float(out))
+        return out
+
+    with mock.patch.object(sstep_mod, "norm2", recorded):
+        sres, ssolve_ms, s_launches, s_per, s_gaps = run_marked(
+            sstep, (sb,), sstep_mod, "cgs2_project_window", sstep_kernels)
+        s_stages = stencil_powers_apply.stage_launches
+        k_norms, norms[:] = list(norms), []
+        sref, splain_ms = plain_run(sstep, sb)
+    s_true = true_residual(sres.x, sb)
+    srel_x, _ = rel_err(sres.x, sref.x)
+    srel_n = max(abs(a - b) / b for a, b in zip(k_norms, norms))
+    log(f"s-step path: iters {sres.iters} (s=4, m=32, 5 cycles) first solve "
+        f"{ssolve_ms:.1f} ms launches {s_launches}; launches between block "
+        f"projections {s_gaps}; stencil_powers stage launches "
+        f"{s_stages}; residual norms (‖b‖, then β "
+        f"and the true ‖r‖ of each cycle) {k_norms}; true relative residual "
+        f"(plain operator, f64) {s_true:.3e}")
+    log(f"s-step plain reference: iters {sref.iters} solve {splain_ms:.1f} "
+        f"ms; norms {norms}; max rel Δ of the norms {srel_n:.3e}, "
+        f"max|Δx|/max|x| = {srel_x:.3e}")
+    if sres.iters != 160 or sref.iters != 160 or len(k_norms) != len(norms):
+        fail(f"s-step runs: iters {sres.iters} vs {sref.iters}")
+    if not (srel_n <= SSTEP_TOL and srel_x <= SSTEP_TOL):
+        fail(f"s-step kernel and plain runs differ: norms {srel_n:.3e}, x "
+             f"{srel_x:.3e} (tol {SSTEP_TOL:.0e})")
+    for name, count in s_launches.items():
+        if count == 0:
+            fail(f"s-step path never launched {name}")
+    del sref
+    swarm_ms = warm(sstep, sb)
+
+    # -- 7d. fused-iteration CG ---------------------------------------------
+    fstep, (fb,) = fused_cg_entry(dims=DIMS, device="cuda")
+    fres, fsolve_ms, f_launches, f_per, f_gaps = run_marked(
+        fstep, (fb,), cg_mod, "cg_fused_iteration", fused_kernels)
+    f_true = true_residual(fres.x, fb)
+    log(f"fused CG path: converged {bool(fres.converged)} iters {fres.iters} "
+        f"first solve {fsolve_ms:.1f} ms launches {f_launches}; launches "
+        f"between iterations {f_gaps}; true relative residual (plain "
+        f"operator, f64) {f_true:.3e}")
+    if not bool(fres.converged) or not f_true <= RTOL:
+        fail(f"fused CG path: converged {bool(fres.converged)}, true "
+             f"residual {f_true:.3e}")
+    if f_launches["cg_fused"] < fres.iters:
+        fail(f"fused CG: {f_launches['cg_fused']} launches for "
+             f"{fres.iters} iterations")
+    fwarm_ms = warm(fstep, fb)
+    f100, _ = fused_cg_entry(dims=DIMS, device="cuda", rtol=0.0,
+                             maxiter=FUSED_CG_ITERS)
+    k100 = f100(fb)
+    p100, f100_plain_ms = plain_run(f100, fb)
+    frel_x, _ = rel_err(k100.x, p100.x)
+    frel_r = abs(float(k100.resnorm) - float(p100.resnorm)) / float(
+        p100.resnorm)
+    log(f"fused CG, first {FUSED_CG_ITERS} iterations (rtol 0): kernel "
+        f"resnorm {float(k100.resnorm):.6e}, plain {float(p100.resnorm):.6e} "
+        f"(rel Δ {frel_r:.3e}); max|Δx|/max|x| = {frel_x:.3e}; plain run "
+        f"{f100_plain_ms:.1f} ms")
+    if k100.iters != FUSED_CG_ITERS or p100.iters != FUSED_CG_ITERS or not (
+            frel_x <= FUSED_CG_X_TOL and frel_r <= FUSED_CG_X_TOL):
+        fail(f"fused CG kernel and plain runs differ: x {frel_x:.3e}, "
+             f"resnorm {frel_r:.3e} (tol {FUSED_CG_X_TOL:.0e})")
+    del k100, p100
+
     # -- 8. timings at the main paths' shapes --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     n0, n1, nd = fine.n_rows_pad, a1.n_rows_pad, len(a1.offsets)
@@ -444,6 +689,18 @@ def main():
     check("conv3d batch-of-k library call vs stencil SpMM",
           conv_k(x0b).reshape(NRHS, -1).T,
           stencil_spmv_plain(fine, x0k)[:fine.n_rows], 1e-5)
+    def poly_flops(stages):
+        """Operations of the stage chain on the fine grid: 2 per stencil
+        term and 1 for α, 2 each for the β, γ and ζ terms."""
+        return sum((2 * fine.nnz + n0 if a else 0)
+                   + 2 * n0 * ((bt != 0) + (g != 0) + (z != 0))
+                   for a, bt, g, z in stages)
+
+    zero0 = torch.zeros_like(x0)
+    w_x0 = stencil_spmv(fine, x0)
+    pq = randn((2, n0), torch.float32, seed=34)
+    cg_state = (zero0, x0, w_x0, pq[0], pq[1], torch.stack(
+        [x0 @ x0, x0 @ w_x0, x0 @ x0 * 1.25, zero0[0] + 0.5]).reshape(1, 4))
     csr = dia_as_csr(a1)
     check("sparse CSR library call vs dia", csr @ x1,
           dia_spmv_plain(a1, x1), 1e-5)
@@ -492,14 +749,42 @@ def main():
              kernel=lambda: chol_inv_small(g16),
              plain=lambda: chol_inv_small_plain(g16),
              library=chol_library),
+        # no single PyTorch call computes a stencil polynomial or a fused
+        # CG iteration: library_ms is null for the last three rows
+        dict(name="stencil_poly", source="stencil_poly.cu",
+             replaces="stencil_poly.py:336", also_replaces=None,
+             shape=f"{GRID} f32, Chebyshev s=3 (u_s only)",
+             bytes=2 * n0 * 4, flops=poly_flops(cheb3),
+             kernel=lambda: stencil_poly_apply(fine, cheb3, x0),
+             plain=lambda: stencil_poly_plain(fine, cheb3, x0),
+             library=None),
+        dict(name="stencil_powers", source="stencil_poly.cu",
+             replaces="stencil_poly.py:336", also_replaces=None,
+             shape=f"{GRID} f32, monomial s=4 (all outputs)",
+             bytes=(1 + 4) * n0 * 4, flops=poly_flops(mono4),
+             kernel=lambda: stencil_powers_apply(fine, mono4, x0),
+             plain=lambda: stencil_powers_plain(fine, mono4, x0),
+             library=None),
+        dict(name="cg_fused", source="cg_fused.cu",
+             replaces="cg_fused.py:234", also_replaces=None,
+             shape=f"{GRID} f32, one iteration",
+             bytes=10 * n0 * 4, flops=12 * n0 + 6 * fine.nnz,
+             kernel=lambda: cg_fused_iteration(fine, *cg_state),
+             plain=lambda: cg_fused_iteration_plain(fine, *cg_state),
+             library=None),
     ]
-    launches = {**cg_launches, **b_launches}
-    per_step = {**cg_per, **b_per}
+    # each row's counts come from the path that runs it (CG and block rows
+    # from their own paths)
+    launches = {**f_launches, **s_launches, **c_launches, **cg_launches,
+                **b_launches}
+    per_step = {**f_per, **s_per, **c_per, **cg_per, **b_per}
+    # stage kernels the polynomial wrappers launched on their own paths
+    stage_launches = {"stencil_poly": c_stages, "stencil_powers": s_stages}
     kernels = []
     for r in rows:
         kernel_ms = time_ms(r["kernel"])
         plain_ms = time_ms(r["plain"])
-        library_ms = time_ms(r["library"])
+        library_ms = time_ms(r["library"]) if r["library"] else None
         by_bytes = r["bytes"] / HBM_BYTES_PER_MS
         by_ops = r["flops"] / F32_FLOPS_PER_MS
         pkg = "smalldense.py" if r["name"] == "chol_inv_small" else None
@@ -516,6 +801,8 @@ def main():
             plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=library_ms)
+        if r["name"] in stage_launches:
+            entry_["stage_launches"] = stage_launches[r["name"]]
         log(json.dumps(entry_))
         kernels.append(entry_)
     bf16_ms = time_ms(lambda: dia_spmv(a1_bf16, x1))
@@ -524,6 +811,39 @@ def main():
     bf16k_ms = time_ms(lambda: dia_spmm(a1_bf16, x1k))
     log(f"dia_spmm bf16 data at level 1, k={NRHS}: {bf16k_ms:.4f} ms, bound "
         f"{(nd * 2 + 2 * NRHS * 4) * n1 / HBM_BYTES_PER_MS:.4f} ms")
+
+    def unfused(stages, keep):
+        """The stage chain as stencil_spmv kernel launches and plain
+        axpys (256³ has no pad rows)."""
+        prev2, prev, outs = zero0, x0, []
+        for a, bt, g, z in stages:
+            u = a * stencil_spmv(fine, prev) if a else zero0
+            if bt:
+                u = u + bt * prev
+            if g:
+                u = u + g * prev2
+            if z:
+                u = u + z * x0
+            prev2, prev = prev, u
+            if keep:
+                outs.append(u)
+        return outs or prev
+
+    def unfused_cg():
+        """One single-reduce iteration as a stencil_spmv launch and plain
+        vector ops: the unfused sequence cg_fused replaces."""
+        _, r_, w_, p_, q_, sc = cg_state
+        beta, alpha = sc[0, 0] / sc[0, 2], sc[0, 3]
+        p2, q2 = r_ + beta * p_, w_ + beta * q_
+        r2 = r_ - alpha * q2
+        w2 = stencil_spmv(fine, r2)
+        return zero0 + alpha * p2, torch.stack([r2 @ r2, r2 @ w2])
+
+    for label, fn in (("stencil_poly Chebyshev s=3", lambda: unfused(
+            cheb3, False)), ("stencil_powers monomial s=4", lambda: unfused(
+            mono4, True)), ("cg_fused iteration", unfused_cg)):
+        log(f"unfused sequence for {label} at {GRID} f32 (stencil_spmv "
+            f"kernel + plain vector ops): {time_ms(fn):.4f} ms")
     empty_ms = time_ms(lambda: smalldense.empty_launch(x0.device))
     log(f"empty kernel (launch floor for chol_inv_small): {empty_ms:.4f} ms")
     log(f"CG solve: {warm_ms:.2f} ms wall, {warm_ms / max(iters, 1):.3f} "
@@ -534,11 +854,26 @@ def main():
         f"steps of {NRHS} right-hand sides (first solve {bsolve_ms:.1f} ms; "
         f"plain versions {bplain_ms:.1f} ms); launches per block step "
         f"{b_per}; peak memory {bpeak:.2f} GiB (plain {bplain_peak:.2f} GiB)")
+    log(f"Chebyshev AMG-PCG solve: {cwarm_ms:.2f} ms wall, "
+        f"{cwarm_ms / max(citers, 1):.3f} ms/iter over {citers} iterations "
+        f"(first solve {csolve_ms:.1f} ms; plain versions {cplain_ms:.1f} "
+        f"ms); launches per iteration {c_per}")
+    log(f"s-step GMRES solve: {swarm_ms:.2f} ms wall, "
+        f"{swarm_ms / sres.iters:.3f} ms per basis vector over {sres.iters} "
+        f"(first solve {ssolve_ms:.1f} ms; plain versions {splain_ms:.1f} "
+        f"ms); launches per block of 4 {s_per}")
+    log(f"fused CG solve: {fwarm_ms:.2f} ms wall, "
+        f"{fwarm_ms / max(fres.iters, 1):.4f} ms/iter over {fres.iters} "
+        f"iterations (first solve {fsolve_ms:.1f} ms); launches per "
+        f"iteration {f_per}")
 
     # -- 9. one solve of each path under the profiler: device time by kernel
     # (last, so that it cannot disturb the timings above)
     profile("CG solve", lambda: step(b, state))
     profile("block solve", lambda: bstep(bb, bstate))
+    profile("Chebyshev AMG-PCG solve", lambda: cstep(cb, cstate))
+    profile("s-step GMRES solve", lambda: sstep(sb))
+    profile("fused CG solve", lambda: fstep(fb))
 
     log(card)
     log(json.dumps({"kernels": kernels}))

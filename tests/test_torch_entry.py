@@ -22,8 +22,11 @@ from trilinos_tpu.precond import SaAmg as JSaAmg
 from trilinos_tpu.solvers import cg as j_cg
 
 import trilinos_tpu_torch
-from trilinos_tpu_torch.entry import block_entry, entry
-from trilinos_tpu_torch.ops import dia_spmv, stencil_spmv
+from trilinos_tpu_torch.entry import (block_entry, cheb_entry, entry,
+                                      fused_cg_entry, sstep_entry)
+from trilinos_tpu_torch.ops import (cg_fused_iteration, dia_spmv,
+                                    stencil_poly_apply, stencil_powers_apply,
+                                    stencil_spmv)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -63,6 +66,25 @@ def test_entry_twin_matches_jax(dtype, max_diters, tol):
     assert stencil_spmv.launches == 0 and dia_spmv.launches == 0
 
 
+def test_new_paths_launch_no_kernel_on_the_cpu():
+    """The s-step and fused-CG paths at 16³ on the CPU: every wrapper runs
+    its plain version, so the kernels' counters stay 0, the stage counts of
+    the polynomial wrappers too."""
+    counters = (stencil_poly_apply, stencil_powers_apply, cg_fused_iteration,
+                stencil_spmv)
+    for fn in counters:
+        fn.launches = 0
+    stencil_poly_apply.stage_launches = 0
+    stencil_powers_apply.stage_launches = 0
+    step, (b,) = sstep_entry(device="cpu")
+    assert step(b).iters == 160
+    step, (b,) = fused_cg_entry(device="cpu")
+    assert bool(step(b).converged)
+    assert [fn.launches for fn in counters] == [0, 0, 0, 0]
+    assert stencil_poly_apply.stage_launches == 0
+    assert stencil_powers_apply.stage_launches == 0
+
+
 def test_entry_inputs_match_graft_entry():
     from __graft_entry__ import entry as graft_entry
 
@@ -89,7 +111,12 @@ def test_port_imports_no_jax():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"trilinos_tpu_torch/ops/smalldense.py",
             "trilinos_tpu_torch/solvers/ortho.py",
-            "trilinos_tpu_torch/solvers/block_gmres.py"} <= names
+            "trilinos_tpu_torch/solvers/block_gmres.py",
+            "trilinos_tpu_torch/ops/stencil_poly.py",
+            "trilinos_tpu_torch/ops/cg_fused.py",
+            "trilinos_tpu_torch/precond/chebyshev.py",
+            "trilinos_tpu_torch/eigen/lanczos.py",
+            "trilinos_tpu_torch/solvers/sstep_gmres.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -101,8 +128,9 @@ def test_default_device_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        block_entry()
+    for fn in (block_entry, cheb_entry, sstep_entry, fused_cg_entry):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
     from trilinos_tpu_torch.galeri import laplace3d
     from trilinos_tpu_torch.precond import SaAmg
 

@@ -171,6 +171,26 @@ def test_wrapper_refuses_other_devices():
         stencil_spmv_plain(top, torch.zeros(top.n_rows_pad + 8))
 
 
+def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
+    """Every kernel source includes ``tt_common.cuh``, and editing the
+    header changes every library's build key, so each is rebuilt."""
+    from trilinos_tpu_torch.ops import _build
+
+    for name in _build.KERNELS:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        if name != "chol_inv_small":  # no stencil terms, no _rn sums
+            assert '#include "tt_common.cuh"' in src, name
+        (tmp_path / f"{name}.cu").write_text(src)
+    header = (_build.CSRC / "tt_common.cuh").read_text()
+    (tmp_path / "tt_common.cuh").write_text(header)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n).name for n in _build.KERNELS}
+    assert before == {n: _build.library_path(n).name for n in _build.KERNELS}
+    (tmp_path / "tt_common.cuh").write_text(header + "\n")
+    after = {n: _build.library_path(n).name for n in _build.KERNELS}
+    assert all(before[n] != after[n] for n in _build.KERNELS)
+
+
 def test_multivector_wrapper_refuses_other_devices():
     _, top = both((8, 8, 8), LAP3)
     x = torch.zeros((top.n_rows_pad, 4), device="meta")

@@ -28,7 +28,8 @@
 // same data[d, i] (one broadcast load) and k contiguous x values. Same
 // order, widening and rounding as the single-vector kernel.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "tt_common.cuh"
 
 #define TT_MAX_DIAGS 512
 #define TT_MAX_COLS 1024  // threads per block: k·rows ≤ 1024
@@ -37,11 +38,6 @@ struct DiaOffsets {
   int n;
   int off[TT_MAX_DIAGS];
 };
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }

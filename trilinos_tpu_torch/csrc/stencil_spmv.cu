@@ -30,25 +30,9 @@
 // one contiguous k-element run. ix, iy, iz come from the launch grid once
 // per row. Same term order and rounding as the single-vector kernel, so the
 // result is bitwise the plain version's.
-#include <cuda_runtime.h>
+#include "tt_common.cuh"
 
-#define TT_MAX_TERMS 32
 #define TT_MAX_COLS 1024  // threads per block: k·rx·ry ≤ 1024
-
-template <typename T>
-struct StencilTerms {
-  int n;
-  int dx[TT_MAX_TERMS];
-  int dy[TT_MAX_TERMS];
-  int dz[TT_MAX_TERMS];
-  long long lin[TT_MAX_TERMS];
-  T c[TT_MAX_TERMS];
-};
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 template <typename T>
 __global__ void stencil_kernel(const T* __restrict__ x, T* __restrict__ y,
@@ -99,22 +83,6 @@ static cudaError_t copy_pad_rows(const void* x, void* y, long long n,
   return cudaMemcpyAsync((T*)y + n * k, (const T*)x + n * k,
                          (n_pad - n) * k * sizeof(T), cudaMemcpyDeviceToDevice,
                          s);
-}
-
-template <typename T>
-static int fill_terms(StencilTerms<T>* t, int n_terms, const int* dx,
-                      const int* dy, const int* dz, const long long* lin,
-                      const double* coeff) {
-  if (n_terms < 0 || n_terms > TT_MAX_TERMS) return (int)cudaErrorInvalidValue;
-  t->n = n_terms;
-  for (int k = 0; k < n_terms; ++k) {
-    t->dx[k] = dx[k];
-    t->dy[k] = dy[k];
-    t->dz[k] = dz[k];
-    t->lin[k] = lin[k];
-    t->c[k] = (T)coeff[k];  // round to nearest, as the device would
-  }
-  return 0;
 }
 
 template <typename T>

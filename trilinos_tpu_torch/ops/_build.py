@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. A build
 happens at first use, into ``trilinos_tpu_torch/_build/`` (git-ignored),
-keyed by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. A missing ``nvcc`` is an error.
+keyed by a hash of the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. A missing ``nvcc`` is an error.
 
 Each C entry point returns the ``cudaError_t`` of its launch (0 = success)
 and each library exports ``tt_error_string`` to name it.
@@ -23,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("stencil_spmv", "dia_spmv", "chol_inv_small")
+KERNELS = ("stencil_spmv", "dia_spmv", "chol_inv_small", "stencil_poly",
+           "cg_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,7 +45,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in (
+        CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

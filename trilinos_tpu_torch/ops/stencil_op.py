@@ -102,9 +102,14 @@ class StencilOp:
             self, offsets=tuple(tuple(-d for d in o) for o in self.offsets))
 
 
-def stencil_spmv_plain(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
+def stencil_spmv_plain(op: StencilOp, x: torch.Tensor,
+                       z_bounds=None) -> torch.Tensor:
     """Plain PyTorch y = A·x for x of shape (n_pad,) or (n_pad, k): one
-    roll and mask per term, summed in offset order; pad rows give y = x."""
+    roll and mask per term, summed in offset order; pad rows give y = x.
+
+    ``z_bounds`` = (z_lo, z_hi) narrows the valid planes of every term's
+    neighbour to z_lo ≤ iz + dz < z_hi (default (0, nz)); the stencil
+    polynomial takes it (``stencil_poly.py``)."""
     was_1d = x.ndim == 1
     x2 = x[:, None] if was_1d else x
     n, npad = op.n_rows, op.n_rows_pad
@@ -112,6 +117,7 @@ def stencil_spmv_plain(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"stencil spmv: x length {x2.shape[0]} != padded "
                          f"rows {npad}")
     nx, ny, nz = op.dims
+    z_lo, z_hi = (0, nz) if z_bounds is None else z_bounds
     gid = torch.arange(npad, device=x.device)
     ix = gid % nx
     iy = (gid // nx) % ny
@@ -123,7 +129,7 @@ def stencil_spmv_plain(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
         valid = gid < n
         valid &= (ix + dx >= 0) & (ix + dx < nx)
         valid &= (iy + dy >= 0) & (iy + dy < ny)
-        valid &= (iz + dz >= 0) & (iz + dz < nz)
+        valid &= (iz + dz >= z_lo) & (iz + dz < z_hi)
         shifted = torch.roll(x2, -o, dims=0) if o else x2
         y = y + torch.where(valid[:, None], c * shifted, 0)
     y = torch.where((gid >= n)[:, None], x2, y)

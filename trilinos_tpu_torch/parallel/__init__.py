@@ -1,3 +1,3 @@
-from .comm import Comm, SerialComm
+from .comm import Comm, SerialComm, norm2
 
-__all__ = ["Comm", "SerialComm"]
+__all__ = ["Comm", "SerialComm", "norm2"]

@@ -7,6 +7,10 @@ the distributed layer (ROADMAP.md, queue 1 item 10).
 """
 from __future__ import annotations
 
+import torch
+
+from ..ops.blas import local_dot
+
 
 class Comm:
     """Reduction surface the solver layer is written against (the slice's
@@ -26,3 +30,8 @@ class SerialComm(Comm):
 
     def __repr__(self):
         return "SerialComm()"
+
+
+def norm2(comm: Comm, x: torch.Tensor) -> torch.Tensor:
+    """Global 2-norm (columnwise for a multivector): local dot, one psum."""
+    return torch.sqrt(comm.psum(local_dot(x, x)))

@@ -10,12 +10,15 @@ even dimension: aggregates are 2-blocks per coarsened axis, so
     (P = (I−ωD⁻¹A)P_t ⇒ Pᵀr = P_tᵀ(r−ωAD⁻¹r)),
   * every coarse level is the exact Galerkin operator in boundary-classified
     form (``precond/structured.py``), stored as a :class:`DiaMatrix`,
-  * smoothing is damped Jacobi and the coarsest level is a dense
-    pseudo-inverse matvec.
+  * smoothing is damped Jacobi, or with ``"smoother: type": "chebyshev"``
+    a degree sweeps+1 Chebyshev polynomial on the fine level (one stencil
+    polynomial apply, λmax from the Gershgorin bound) with damped Jacobi
+    on the coarse DIA levels; the coarsest level is a dense pseudo-inverse
+    matvec.
 
 Setup is host numpy; the level operators, Jacobi diagonals and coarse
-inverse live on ``device``. The uncoupled (CSR) branch and the Chebyshev
-smoother are not ported yet and raise ``NotImplementedError``.
+inverse live on ``device``. The uncoupled (CSR) branch is not ported yet
+and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from ..ops.matvec import spmv
 from ..ops.stencil_op import StencilOp
 from ..utils.params import Param
 from .base import Preconditioner
+from .chebyshev import fused_stencil_chebyshev
 
 _SPECS = {
     "max levels": Param("max levels", 10),
@@ -53,8 +57,6 @@ _SPECS = {
 
 _UNCOUPLED = ("the uncoupled SA branch (CSR input, stored P/R) is not "
               "ported yet (ROADMAP.md queue 1 item 5)")
-_CHEBYSHEV = ("the Chebyshev smoother is not ported yet (ROADMAP.md queue "
-              "1 item 5 and queue 2 item 4)")
 
 
 def _structured_block(dims) -> tuple[int, ...]:
@@ -201,8 +203,6 @@ class SaAmg(Preconditioner):
             raise NotImplementedError(_UNCOUPLED)
         if agg_t == "uncoupled" or not can_structured:
             raise NotImplementedError(_UNCOUPLED)
-        if p["smoother: type"] == "chebyshev":
-            raise NotImplementedError(_CHEBYSHEV)
         fine_op = p["fine: matrix-free operator"]
         if (fine_op is not None and isinstance(self.a, CsrHost)
                 and fine_op.shape != self.a.shape):
@@ -222,6 +222,7 @@ class SaAmg(Preconditioner):
             op, int(p["max levels"]), int(p["coarse: max size"]),
             float(p["sa: damping factor"]),
             float(p["aggregation: drop tol"]), dtype, self.device)
+        use_cheb = p["smoother: type"] == "chebyshev"
         self.levels = []
         for i, meta in enumerate(metas):
             rep, dims, dev = meta["rep"], meta["dims"], meta["dev"]
@@ -237,10 +238,15 @@ class SaAmg(Preconditioner):
                 d = rep.diag_vector(dims)
                 dv[: len(d)] = 1.0 / np.where(d != 0, d, 1.0)
                 dinv = torch.as_tensor(dv).to(self.device, dtype)
-            self.levels.append(dict(a=dev, dinv=dinv, n_f=npad_f,
-                                    n_c=npad_c, dims=dims,
-                                    block=meta["block"],
-                                    omega=meta["omega"]))
+            lvl = dict(a=dev, dinv=dinv, n_f=npad_f, n_c=npad_c, dims=dims,
+                       block=meta["block"], omega=meta["omega"])
+            if use_cheb and i == 0:
+                # degree sweeps+1; the Gershgorin bound stands in for the
+                # power-method λmax (an upper bound for constant stencils,
+                # no device work at set-up)
+                lvl["cheb"] = fused_stencil_chebyshev(
+                    op, degree=self.sweeps + 1, lmax=rep.gershgorin())
+            self.levels.append(lvl)
         self._set_coarse_inv(coarsest_csr, coarsest_npad, dtype)
 
     def _set_coarse_inv(self, a: CsrHost, npad: int, dtype) -> None:
@@ -272,7 +278,7 @@ class SaAmg(Preconditioner):
                 s["a"], lvl["dims"], lvl["n_c"], lvl["block"],
                 lvl["omega"], s["dinv"])
             levels.append(dict(a=s["a"], dinv=s["dinv"], restrict=restrict,
-                               prolong=prolong))
+                               prolong=prolong, cheb=lvl.get("cheb")))
         return self._cycle(levels, st["coarse_inv"], 0, r)
 
     def _smooth(self, lvl, x, b):
@@ -281,18 +287,30 @@ class SaAmg(Preconditioner):
             x = x + self.omega * dinv * (b - spmv(lvl["a"], x))
         return x
 
+    def _presmooth(self, lvl, b):
+        ch = lvl["cheb"]
+        if ch is not None:
+            return ch(b)  # zero guess: x = p(A) b
+        return self._smooth(lvl, torch.zeros_like(b), b)
+
+    def _postsmooth(self, lvl, x, b):
+        ch = lvl["cheb"]
+        if ch is not None:
+            return x + ch(b - spmv(lvl["a"], x))
+        return self._smooth(lvl, x, b)
+
     def _cycle(self, levels, coarse_inv, k: int,
                b: torch.Tensor) -> torch.Tensor:
         if k == len(levels):
             return coarse_inv @ b
         lvl = levels[k]
-        x = self._smooth(lvl, torch.zeros_like(b), b)
+        x = self._presmooth(lvl, b)
         # gamma=1: V-cycle; gamma=2: W-cycle
         for _ in range(self.gamma):
             r = b - spmv(lvl["a"], x)
             e_c = self._cycle(levels, coarse_inv, k + 1, lvl["restrict"](r))
             x = x + lvl["prolong"](e_c)
-        return self._smooth(lvl, x, b)
+        return self._postsmooth(lvl, x, b)
 
     def _apply(self, r: torch.Tensor) -> torch.Tensor:
         return self.apply_state(self.state(), r)
