@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``trilinos_tpu_torch/csrc/``,
-holds each against its plain PyTorch version on the card at every shape the
-paths give it, and drives five paths on the 256³ Laplace3D stencil, each
-once through the kernels and once through the plain versions:
+Builds the hand-written CUDA kernels from ``trilinos_tpu_torch/csrc/``
+and the native host SpGEMM, holds each kernel against its plain PyTorch
+version on the card at every shape the paths give it, and drives seven
+paths, each once through the kernels and once through the plain versions.
+Five run on the 256³ Laplace3D stencil:
 
 * structured-AMG-preconditioned CG (``entry``) and AMG-preconditioned
   block GMRES, nrhs = 16, CGS2 + CholQR2 (``block_entry``), on one
@@ -15,8 +16,17 @@ once through the kernels and once through the plain versions:
 * s-step GMRES with the matrix-powers basis (``sstep_entry``);
 * fused-iteration CG (``fused_cg_entry``).
 
-Each path is driven with the launch counts set to 0 just before it and
-read just after. It times each warm solve, times each kernel beside its
+Two run on Galeri 3-D Q1 elasticity through the BDIA kernel:
+
+* CG preconditioned by the block-structured null-space AMG
+  (``elasticity_entry``) on 48³ nodes (331,776 dofs), every level a
+  BdiaMatrix (b = 3, then b = 6);
+* CG in plane layout (``bdia_cg_entry``) on 64×64×48 nodes, 400
+  iterations.
+
+Every hierarchy set-up must be served by the native SpGEMM. Each path
+is driven with the launch counts set to 0 just before it and read just
+after. It times each warm solve, times each kernel beside its
 bound, its plain version and one PyTorch library call where there is one,
 profiles one solve of each path (device time by kernel), and ends with one
 JSON line naming the device. Any failure exits non-zero; without a CUDA
@@ -24,7 +34,9 @@ device it exits non-zero before doing anything.
 """
 import collections
 import contextlib
+import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -61,6 +73,13 @@ FUSED_CG_X_TOL = 1e-5  # the first 100 iterations of the fused-CG path
 # tolerance, so the CholQR2 bases of the two runs differ by rounding
 SSTEP_TOL = 1e-4  # per-cycle residual norms and x
 FUSED_CG_ITERS = 100
+EL_DIMS = (48, 48, 48)  # elasticity AMG-PCG nodes: 331,776 dofs
+PLANE_DIMS = (64, 64, 48)  # plane-layout CG nodes: 589,824 dofs
+PLANE_ITERS = 400
+BDIA2D_DIMS = (1024, 512)  # the JAX bench's bare BDIA apply, b = 2
+BDIA_X_TOL = 1e-4  # kernel and plain elasticity AMG-PCG stop at rtol 1e-5
+PLANE_X_TOL = 1e-5  # the first PLANE_CHECK_ITERS plane-CG iterations
+PLANE_CHECK_ITERS = 20
 BATCH, SAMPLES = 10, 25
 
 
@@ -140,6 +159,49 @@ def dia_as_csr(a):
     return coo.to_sparse_csr()
 
 
+def bdia_blocks(a):
+    """(block rows, block cols, (b, b) blocks) of a BdiaMatrix: every block
+    whose column is in range, ordered by block row and then column."""
+    nbr = a.nbr_pad
+    q = torch.arange(nbr, device="cuda")
+    offs = torch.tensor(a.offsets, device="cuda")
+    cols = q[:, None] + offs[None, :]  # (nbr, nd), offsets ascending
+    keep = (cols >= 0) & (cols < nbr)
+    blocks = a.data.permute(3, 0, 1, 2)  # (nbr, nd, b, b)
+    return (q[:, None].expand_as(cols)[keep], cols[keep], blocks[keep])
+
+
+def bdia_as_csr(a):
+    """The same BDIA matrix as a torch sparse CSR tensor (nonzero entries of
+    the in-range blocks)."""
+    b = a.block_size
+    brow, bcol, blocks = bdia_blocks(a)
+    i = torch.arange(b, device="cuda")
+    rows = (brow[:, None, None] * b + i[:, None]).expand_as(blocks)
+    cols = (bcol[:, None, None] * b + i[None, :]).expand_as(blocks)
+    keep = blocks != 0
+    n = a.n_rows_pad
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  blocks[keep], (n, n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def bdia_as_bsr(a):
+    """The same BDIA matrix as a torch sparse BSR tensor of (b, b) blocks."""
+    brow, bcol, blocks = bdia_blocks(a)
+    crow = torch.zeros(a.nbr_pad + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(brow, minlength=a.nbr_pad), 0)
+    return torch.sparse_bsr_tensor(crow, bcol, blocks.contiguous(),
+                                   (a.n_rows_pad, a.n_rows_pad))
+
+
+def bdia_bytes(a, k, x_itemsize=4):
+    """Bytes a BDIA apply must move: the planes once, x and y once each."""
+    nd, b = len(a.offsets), a.block_size
+    return (nd * b * b * a.data.element_size()
+            + 2 * b * k * x_itemsize) * a.nbr_pad
+
+
 def with_floor(g):
     """g plus cholqr's diagonal floor max(10·eps·max|g|, tiny)."""
     fl = torch.clamp(10.0 * torch.finfo(g.dtype).eps * g.abs().max(),
@@ -213,14 +275,25 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    if not (pathlib.Path(__file__).resolve().parent
+            / "trilinos_tpu_torch").is_dir():
+        print("chip_smoke: no trilinos_tpu_torch beside the script; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        sys.exit(2)
 
     import importlib
 
-    from trilinos_tpu_torch.entry import (block_entry, cheb_entry, entry,
+    from trilinos_tpu_torch import native
+    from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
+                                          cheb_entry, elasticity_entry, entry,
                                           fused_cg_entry, sstep_entry)
-    from trilinos_tpu_torch.galeri import laplace3d
+    from trilinos_tpu_torch.galeri import (elasticity2d, elasticity3d,
+                                           laplace3d, rigid_body_modes)
     from trilinos_tpu_torch.galeri.stencils import cross3d_stencil
-    from trilinos_tpu_torch.ops import (StencilOp, cg_fused_iteration,
+    from trilinos_tpu_torch.ops import (BdiaMatrix, StencilOp,
+                                        bdia_planes_plain, bdia_spmm,
+                                        bdia_spmv, bdia_spmv_plain,
+                                        cg_fused_iteration,
                                         cg_fused_iteration_plain,
                                         chol_inv_small, chol_inv_small_plain,
                                         dia_spmm, dia_spmv, dia_spmv_plain,
@@ -229,10 +302,11 @@ def main():
                                         stencil_powers_apply,
                                         stencil_powers_plain, stencil_spmm,
                                         stencil_spmv, stencil_spmv_plain)
-    from trilinos_tpu_torch.ops import _build, matvec, smalldense
+    from trilinos_tpu_torch.ops import (_build, csr_to_bdia, matvec,
+                                        pack_planes, smalldense, spgemm)
     from trilinos_tpu_torch.ops.stencil_poly import (monomial_stages,
                                                      stencil_chebyshev_setup)
-    from trilinos_tpu_torch.precond import SaAmg
+    from trilinos_tpu_torch.precond import BlockStructuredAmg, SaAmg
     from trilinos_tpu_torch.precond.structured import ClassifiedStencil
     from trilinos_tpu_torch.solvers.sstep_gmres import newton_basis_stages
 
@@ -241,6 +315,7 @@ def main():
     sstep_mod = importlib.import_module(
         "trilinos_tpu_torch.solvers.sstep_gmres")
     cheb_mod = importlib.import_module("trilinos_tpu_torch.precond.chebyshev")
+    bdia_mod = importlib.import_module("trilinos_tpu_torch.ops.bdia_spmv")
 
     cg_kernels = {"stencil_spmv": stencil_spmv, "dia_spmv": dia_spmv}
     block_kernels = {"stencil_spmm": stencil_spmm, "dia_spmm": dia_spmm,
@@ -251,8 +326,26 @@ def main():
                      "stencil_spmv": stencil_spmv}
     fused_kernels = {"cg_fused": cg_fused_iteration,
                      "stencil_spmv": stencil_spmv}
+    el_kernels = {"bdia_spmv": bdia_spmv}
+    plane_kernels = {"bdia_spmm": bdia_spmm}
     all_kernels = {**cg_kernels, **block_kernels, **cheb_kernels,
-                   **sstep_kernels, **fused_kernels}
+                   **sstep_kernels, **fused_kernels, **el_kernels,
+                   **plane_kernels}
+
+    def setup(label, fn):
+        """fn() with the SpGEMM path counts set to 0 just before; fails
+        unless the native SpGEMM served every product. Returns (result,
+        seconds)."""
+        spgemm.native_calls = spgemm.numpy_calls = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"setup {label}: {secs:.2f} s; SpGEMM products: native "
+            f"{spgemm.native_calls}, numpy {spgemm.numpy_calls}")
+        if spgemm.numpy_calls or not spgemm.native_calls:
+            fail(f"setup {label}: the native SpGEMM did not serve it")
+        return out, secs
 
     # -- 1. the card ---------------------------------------------------------
     card = subprocess.run(
@@ -268,6 +361,12 @@ def main():
     built = _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
+    t0 = time.perf_counter()
+    lib = native.build()
+    log(f"native SpGEMM build (g++): {time.perf_counter() - t0:.2f} s -> "
+        f"{lib}")
+    if lib is None:
+        fail("no g++: the native SpGEMM cannot be built")
     for name in _build.KERNELS:
         report = (_build.BUILD_DIR / f"{name}.log")
         if report.exists():
@@ -304,13 +403,11 @@ def main():
         del x, y
 
     # -- 4. one hierarchy for both paths; DIA kernels on every level ---------
-    t0 = time.perf_counter()
     fine = laplace3d(*DIMS, dtype=np.float32, fmt="stencil")
-    amg = SaAmg(fine, {"dtype": np.float32}, device="cuda").compute()
+    amg, jacobi_setup_s = setup(f"{GRID} hierarchy", lambda: SaAmg(
+        fine, {"dtype": np.float32}, device="cuda").compute())
     step, (b, state) = entry(amg=amg)
-    torch.cuda.synchronize()
-    log(f"setup {GRID} hierarchy: {time.perf_counter() - t0:.2f} s; levels "
-        + " -> ".join(type(lv["a"]).__name__ + str(
+    log("levels " + " -> ".join(type(lv["a"]).__name__ + str(
             getattr(lv["a"], "offsets", ()).__len__())
             for lv in state["levels"])
         + f" -> dense {tuple(state['coarse_inv'].shape)}")
@@ -463,7 +560,11 @@ def main():
         (smalldense, "chol_inv_small", chol_inv_small_plain),
         (cheb_mod, "stencil_poly_apply", stencil_poly_plain),
         (sstep_mod, "stencil_powers_apply", stencil_powers_plain),
-        (cg_mod, "cg_fused_iteration", cg_fused_iteration_plain))
+        (cg_mod, "cg_fused_iteration", cg_fused_iteration_plain),
+        (matvec, "bdia_spmv", bdia_spmv_plain),
+        (bdia_mod, "bdia_spmm", lambda a, x, layout="interleaved": (
+            bdia_planes_plain if layout == "planes" else bdia_spmv_plain)(
+                a, x)))
 
     def plain_run(fn, *args):
         """fn(*args) with the plain versions patched in for every kernel;
@@ -564,12 +665,10 @@ def main():
             / torch.linalg.vector_norm(r64))
 
     # -- 7b. AMG-PCG with the Chebyshev smoother: a second hierarchy -------
-    t0 = time.perf_counter()
-    camg = SaAmg(fine, {"dtype": np.float32, "smoother: type": "chebyshev"},
-                 device="cuda").compute()
+    camg, cheb_setup_s = setup(f"{GRID} Chebyshev hierarchy", lambda: SaAmg(
+        fine, {"dtype": np.float32, "smoother: type": "chebyshev"},
+        device="cuda").compute())
     cstep, (cb, cstate) = cheb_entry(amg=camg)
-    torch.cuda.synchronize()
-    log(f"setup {GRID} Chebyshev hierarchy: {time.perf_counter() - t0:.2f} s")
     cres, csolve_ms, c_launches, c_per, c_gaps = run_marked(
         cstep, (cb, cstate), SaAmg, "apply_state", cheb_kernels)
     c_stages = stencil_poly_apply.stage_launches
@@ -671,6 +770,160 @@ def main():
              f"resnorm {frel_r:.3e} (tol {FUSED_CG_X_TOL:.0e})")
     del k100, p100
 
+    # -- 7e. the BDIA kernel against its plain version; the elasticity paths -
+    # the two sides sum each row in another order: f32 tolerance, not bitwise
+    def check_bdia(label, a, x, planes=False):
+        name = "bdia_spmm" if planes or x.ndim == 2 else "bdia_spmv"
+        got = (bdia_spmm(a, x, layout="planes") if planes
+               else bdia_spmv(a, x))
+        want = (bdia_planes_plain if planes else bdia_spmv_plain)(a, x)
+        torch.cuda.synchronize()
+        err[name] = max(err[name], check(f"bdia {label}", got, want,
+                                         TOL[x.dtype]))
+
+    def bdia_x(a, k, seed, planes=False, dtype=torch.float32):
+        """Seed normals with zero pad rows, interleaved or as planes."""
+        x = randn((a.n_rows_pad, k) if k > 1 else a.n_rows_pad, dtype, seed)
+        x[a.n_rows:] = 0
+        return pack_planes(a, x) if planes else x
+
+    def assemble(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"assemble {label}: {time.perf_counter() - t0:.2f} s, "
+            f"{out.shape[0]} dofs, {out.nnz} nonzeros")
+        return out
+
+    def no_plain(*args, **kwargs):
+        fail("a plain BDIA apply ran on a kernel path")
+
+    def csr_f64(h):
+        """The host CSR on the card in f64, for true residuals."""
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(h.row_ptr), torch.from_numpy(
+                h.cols.astype(np.int64)), torch.from_numpy(
+                h.vals.astype(np.float64)), h.shape).to("cuda")
+
+    def host_residual(csr, x, rhs):
+        n = csr.shape[0]
+        r64 = rhs[:n].double()
+        return float(torch.linalg.vector_norm(r64 - csr @ x[:n].double())
+                     / torch.linalg.vector_norm(r64))
+
+    grid2 = "x".join(map(str, BDIA2D_DIMS))
+    a2 = csr_to_bdia(assemble(f"elasticity2d {grid2}", lambda: elasticity2d(
+        *BDIA2D_DIMS, e_mod=1.0, dtype=np.float32)), 2, dtype=np.float32,
+        device="cuda")
+    for k in (1, NRHS):
+        check_bdia(f"elasticity2d {grid2} b=2 nd={len(a2.offsets)} planes "
+                   f"k={k} f32", a2, bdia_x(a2, k, 500 + k, planes=True),
+                   planes=True)
+    grid_p = "x".join(map(str, PLANE_DIMS))
+    e3 = assemble(f"elasticity3d {grid_p}", lambda: elasticity3d(
+        *PLANE_DIMS, e_mod=1.0, dtype=np.float32))
+    a3 = csr_to_bdia(e3, 3, dtype=np.float32, device="cuda")
+    for k in (1, 4):
+        for planes in (False, True):
+            check_bdia(f"elasticity3d {grid_p} b=3 nd={len(a3.offsets)} "
+                       f"{'planes' if planes else 'interleaved'} k={k} f32",
+                       a3, bdia_x(a3, k, 510 + k, planes), planes)
+    apad = csr_to_bdia(elasticity3d(10, 10, 9, e_mod=1.0, dtype=np.float32),
+                       3, dtype=np.float32, device="cuda")
+    if apad.nbr_pad != 904:
+        fail(f"pad-row case has {apad.nbr_pad} block rows, not 904")
+    for planes in (False, True):
+        check_bdia(f"elasticity3d 10x10x9 (900 block rows in 904) "
+                   f"{'planes' if planes else 'interleaved'} f32", apad,
+                   bdia_x(apad, 1, 520, planes), planes)
+
+    grid_e = "x".join(map(str, EL_DIMS))
+    ea = assemble(f"elasticity3d {grid_e}", lambda: elasticity3d(
+        *EL_DIMS, e_mod=1.0, dtype=np.float32))
+    eamg, el_setup_s = setup(f"elasticity {grid_e} block AMG", lambda:
+                             BlockStructuredAmg(
+                                 ea, {"dtype": np.float32,
+                                      "coarse: max size": 3000},
+                                 node_dims=EL_DIMS,
+                                 nullspace=rigid_body_modes(*EL_DIMS),
+                                 n_equations=3, device="cuda").compute())
+    estep, (eb, est) = elasticity_entry(amg=eamg)
+    el_levels = [lv["a"] for lv in eamg.levels]
+    log("elasticity levels " + " -> ".join(
+        f"BDIA b={a.block_size} nd={len(a.offsets)} nbr={a.nbr_pad}"
+        for a in el_levels) + f" -> dense {tuple(eamg.coarse_inv.shape)}")
+    if sorted({a.block_size for a in el_levels}) != [3, 6]:
+        fail("the elasticity hierarchy has no b = 3 and b = 6 levels")
+    for i, a in enumerate(el_levels):
+        check_bdia(f"elasticity {grid_e} level {i} b={a.block_size} "
+                   f"nd={len(a.offsets)} nbr={a.nbr_pad} f32", a,
+                   bdia_x(a, 1, 530 + i))
+    a0 = el_levels[0]
+    a0_bf16 = dataclasses.replace(a0, data=a0.data.to(torch.bfloat16))
+    check_bdia(f"elasticity {grid_e} level 0 bf16 data, f32 x", a0_bf16,
+               bdia_x(a0, 1, 540))
+    a1_f64 = dataclasses.replace(el_levels[1],
+                                 data=el_levels[1].data.double())
+    check_bdia(f"elasticity {grid_e} level 1 f64", a1_f64,
+               bdia_x(a1_f64, 1, 541, dtype=torch.float64))
+
+    ecsr = csr_f64(ea)
+    with mock.patch.object(bdia_mod, "bdia_spmv_plain", no_plain):
+        eres, esolve_ms, e_launches, e_per, e_gaps = run_marked(
+            estep, (eb, est), BlockStructuredAmg, "apply_state", el_kernels)
+    eiters = int(eres.iters)
+    e_true = host_residual(ecsr, eres.x, eb)
+    log(f"elasticity AMG-PCG path: converged {bool(eres.converged)} iters "
+        f"{eiters} first solve {esolve_ms:.1f} ms launches {e_launches}; "
+        f"launches between preconditioner calls {e_gaps}; true relative "
+        f"residual (host CSR, f64) {e_true:.3e}")
+    if not bool(eres.converged) or not e_true <= RTOL:
+        fail(f"elasticity path: converged {bool(eres.converged)}, true "
+             f"residual {e_true:.3e}")
+    if e_launches["bdia_spmv"] == 0:
+        fail("elasticity path never launched bdia_spmv")
+    eref, eplain_ms = plain_run(estep, eb, est)
+    erel_x, _ = rel_err(eres.x, eref.x)
+    log(f"elasticity plain reference: converged {bool(eref.converged)} iters "
+        f"{int(eref.iters)} solve {eplain_ms:.1f} ms; max|Δx|/max|x| = "
+        f"{erel_x:.3e}")
+    if abs(int(eref.iters) - eiters) > 1 or not erel_x <= BDIA_X_TOL:
+        fail(f"elasticity kernel and plain solves differ: iters {eiters} vs "
+             f"{int(eref.iters)}, x {erel_x:.3e} (tol {BDIA_X_TOL:.0e})")
+    del eref
+    ewarm_ms = warm(estep, eb, est)
+
+    # -- 7f. CG in plane layout on the 64x64x48 elasticity operator ----------
+    pstep, (pb,) = bdia_cg_entry(a=a3, iters=PLANE_ITERS)
+    zero(plane_kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(bdia_mod, "bdia_planes_plain", no_plain):
+        pres = pstep(pb)
+    torch.cuda.synchronize()
+    psolve_ms = (time.perf_counter() - t0) * 1e3
+    p_launches = counts(plane_kernels)
+    p3csr = csr_f64(e3)
+    p_true = host_residual(p3csr, pres.x, pb)
+    log(f"plane-layout CG path: iters {pres.iters} (rtol 0) first solve "
+        f"{psolve_ms:.1f} ms launches {p_launches}; recurrence residual "
+        f"{float(pres.resnorm):.6e}; true relative residual (host CSR, f64) "
+        f"{p_true:.3e}")
+    if pres.iters != PLANE_ITERS or p_launches["bdia_spmm"] < PLANE_ITERS:
+        fail(f"plane CG: {pres.iters} iterations, launches {p_launches}")
+    if not p_true < 1e-2:
+        fail(f"plane CG did not reduce the residual: {p_true:.3e}")
+    pwarm_ms = warm(pstep, pb)
+    pcheck, _ = bdia_cg_entry(a=a3, iters=PLANE_CHECK_ITERS)
+    kchk = pcheck(pb)
+    rchk, pchk_plain_ms = plain_run(pcheck, pb)
+    prel_x, _ = rel_err(kchk.x, rchk.x)
+    log(f"plane CG, first {PLANE_CHECK_ITERS} iterations: kernel and plain "
+        f"max|Δx|/max|x| = {prel_x:.3e}; plain run {pchk_plain_ms:.1f} ms")
+    if not prel_x <= PLANE_X_TOL:
+        fail(f"plane CG kernel and plain runs differ: {prel_x:.3e} > "
+             f"{PLANE_X_TOL:.0e}")
+    del kchk, rchk
+
     # -- 8. timings at the main paths' shapes --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     n0, n1, nd = fine.n_rows_pad, a1.n_rows_pad, len(a1.offsets)
@@ -713,6 +966,17 @@ def main():
 
     check("cholesky_ex + solve_triangular library call vs chol_inv_small",
           chol_library(), chol_inv_small_plain(g16)[1], 1e-4)
+    xe0 = bdia_x(a0, 1, 550)
+    xp3 = bdia_x(a3, 1, 551, planes=True)
+    x3 = bdia_x(a3, 1, 551)
+    csr_e0, csr3 = bdia_as_csr(a0), bdia_as_csr(a3)
+    check("sparse CSR library call vs bdia (elasticity level 0)",
+          csr_e0 @ xe0, bdia_spmv_plain(a0, xe0), 1e-5)
+    check("sparse CSR library call vs bdia (plane CG operator)", csr3 @ x3,
+          bdia_spmv_plain(a3, x3), 1e-5)
+
+    def nonzeros(a):
+        return int((a.data != 0).sum())
     rows = [
         dict(name="stencil_spmv", source="stencil_spmv.cu",
              replaces="stencil_op.py:475", also_replaces="stencil_op.py:702",
@@ -772,12 +1036,35 @@ def main():
              kernel=lambda: cg_fused_iteration(fine, *cg_state),
              plain=lambda: cg_fused_iteration_plain(fine, *cg_state),
              library=None),
+        # the BDIA kernel on its two paths: interleaved k = 1 on the AMG
+        # hierarchy (its level 0 here, the other levels logged below) and
+        # packed planes in the plane-layout CG
+        dict(name="bdia_spmv", source="bdia_spmv.cu",
+             replaces="bdia_spmv.py:176", also_replaces=None,
+             shape=f"elasticity {grid_e} level 0: b=3, {len(a0.offsets)} "
+                   f"offsets, {a0.nbr_pad} block rows, interleaved, f32",
+             bytes=bdia_bytes(a0, 1), flops=2 * nonzeros(a0),
+             kernel=lambda: bdia_spmv(a0, xe0),
+             plain=lambda: bdia_spmv_plain(a0, xe0),
+             library=lambda: csr_e0 @ xe0),
+        dict(name="bdia_spmm", source="bdia_spmv.cu",
+             replaces="bdia_spmv.py:176", also_replaces=None,
+             shape=f"elasticity {grid_p}: b=3, {len(a3.offsets)} offsets, "
+                   f"{a3.nbr_pad} block rows, planes k=1, f32",
+             bytes=bdia_bytes(a3, 1), flops=2 * nonzeros(a3),
+             kernel=lambda: bdia_spmm(a3, xp3, layout="planes"),
+             plain=lambda: bdia_planes_plain(a3, xp3),
+             library=lambda: csr3 @ x3),
     ]
     # each row's counts come from the path that runs it (CG and block rows
     # from their own paths)
     launches = {**f_launches, **s_launches, **c_launches, **cg_launches,
-                **b_launches}
-    per_step = {**f_per, **s_per, **c_per, **cg_per, **b_per}
+                **b_launches, **e_launches, **p_launches}
+    # the plane CG has no preconditioner to mark an iteration: its launches
+    # per iteration are its launches over its iterations
+    p_per = {"bdia_spmm": p_launches["bdia_spmm"] / PLANE_ITERS}
+    per_step = {**f_per, **s_per, **c_per, **cg_per, **b_per, **e_per,
+                **p_per}
     # stage kernels the polynomial wrappers launched on their own paths
     stage_launches = {"stencil_poly": c_stages, "stencil_powers": s_stages}
     kernels = []
@@ -811,6 +1098,47 @@ def main():
     bf16k_ms = time_ms(lambda: dia_spmm(a1_bf16, x1k))
     log(f"dia_spmm bf16 data at level 1, k={NRHS}: {bf16k_ms:.4f} ms, bound "
         f"{(nd * 2 + 2 * NRHS * 4) * n1 / HBM_BYTES_PER_MS:.4f} ms")
+
+    def bsr_call(a, x):
+        """torch.sparse_bsr_tensor @ x, or None where the card's PyTorch
+        has no such product (logged)."""
+        bsr = bdia_as_bsr(a)
+        try:
+            y = bsr @ x[:, None]
+        except (NotImplementedError, RuntimeError) as exc:
+            log(f"sparse BSR @ dense not available: {exc}")
+            return None
+        check("sparse BSR library call vs bdia", y[:, 0],
+              bdia_spmv_plain(a, x), 1e-5)
+        return lambda: bsr @ x[:, None]
+
+    # the BDIA kernel at every shape of the two elasticity paths and the
+    # JAX bench's bare apply, beside its bound, plain version and library
+    # calls
+    bdia_shapes = [(f"elasticity {grid_e} level {i}", a, bdia_x(a, 1, 560 + i))
+                   for i, a in enumerate(el_levels)]
+    bdia_shapes += [
+        (f"elasticity {grid_e} level 0 bf16 data", a0_bf16, xe0),
+        (f"elasticity {grid_p} interleaved", a3, x3)]
+    for label, a, x in bdia_shapes:
+        csr = bdia_as_csr(a) if a.dtype != torch.bfloat16 else None
+        bsr = bsr_call(a, x) if csr is not None else None
+        log(f"bdia {label} (b={a.block_size}, nd={len(a.offsets)}, "
+            f"nbr={a.nbr_pad}, k=1): kernel "
+            f"{time_ms(lambda: bdia_spmv(a, x)):.4f} ms, bound "
+            f"{bdia_bytes(a, 1) / HBM_BYTES_PER_MS:.4f} ms, plain "
+            f"{time_ms(lambda: bdia_spmv_plain(a, x)):.4f} ms, sparse CSR @ "
+            + (f"{time_ms(lambda: csr @ x):.4f} ms" if csr is not None
+               else "-") + ", sparse BSR @ "
+            + (f"{time_ms(bsr):.4f} ms" if bsr else "-"))
+        del csr
+    for k in (1, NRHS):
+        x2p = bdia_x(a2, k, 570 + k, planes=True)
+        log(f"bdia elasticity2d {grid2} planes (b=2, nd={len(a2.offsets)}, "
+            f"nbr={a2.nbr_pad}, k={k}): kernel "
+            f"{time_ms(lambda: bdia_spmm(a2, x2p, layout='planes')):.4f} ms, "
+            f"bound {bdia_bytes(a2, k) / HBM_BYTES_PER_MS:.4f} ms, plain "
+            f"{time_ms(lambda: bdia_planes_plain(a2, x2p)):.4f} ms")
 
     def unfused(stages, keep):
         """The stage chain as stencil_spmv kernel launches and plain
@@ -862,6 +1190,17 @@ def main():
         f"{swarm_ms / sres.iters:.3f} ms per basis vector over {sres.iters} "
         f"(first solve {ssolve_ms:.1f} ms; plain versions {splain_ms:.1f} "
         f"ms); launches per block of 4 {s_per}")
+    log(f"elasticity {grid_e} AMG-PCG: set-up {el_setup_s:.2f} "
+        f"s; solve {ewarm_ms:.2f} ms wall, {ewarm_ms / max(eiters, 1):.3f} "
+        f"ms/iter over {eiters} iterations (first solve {esolve_ms:.1f} ms; "
+        f"plain versions {eplain_ms:.1f} ms); launches per iteration "
+        f"{e_per}, per solve {e_launches}")
+    log(f"plane-layout CG {grid_p}: {pwarm_ms:.2f} ms wall, "
+        f"{pwarm_ms / PLANE_ITERS:.4f} ms/iter over {PLANE_ITERS} iterations "
+        f"(first solve {psolve_ms:.1f} ms); launches {p_launches}")
+    log(f"hierarchy set-ups (native SpGEMM): {GRID} Jacobi "
+        f"{jacobi_setup_s:.2f} s, Chebyshev {cheb_setup_s:.2f} s, "
+        f"elasticity {grid_e} {el_setup_s:.2f} s")
     log(f"fused CG solve: {fwarm_ms:.2f} ms wall, "
         f"{fwarm_ms / max(fres.iters, 1):.4f} ms/iter over {fres.iters} "
         f"iterations (first solve {fsolve_ms:.1f} ms); launches per "
@@ -874,6 +1213,8 @@ def main():
     profile("Chebyshev AMG-PCG solve", lambda: cstep(cb, cstate))
     profile("s-step GMRES solve", lambda: sstep(sb))
     profile("fused CG solve", lambda: fstep(fb))
+    profile("elasticity AMG-PCG solve", lambda: estep(eb, est))
+    profile("plane-layout CG solve", lambda: pstep(pb))
 
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -3,9 +3,11 @@
 Structured-AMG-preconditioned CG on Laplace3D 16³: in f64 the port must
 take the same number of CG iterations as the JAX package and reach the
 same solution to 1e-9 (max|Δ| / max|x|); in f32, within one iteration and
-1e-4. Also: the port imports neither JAX nor the JAX package, entry points
-refuse to run without a card unless asked for the CPU, the kernel launch
-counters stay 0 on the CPU, and float32 matmuls stay in full precision.
+1e-4. The elasticity paths at 8³ (block-AMG PCG, plane-layout CG) in f64:
+the JAX bench's solves, the same iteration count and x to 1e-10. Also: the
+port imports neither JAX nor the JAX package, entry points refuse to run
+without a card unless asked for the CPU, the kernel launch counters stay 0
+on the CPU, and float32 matmuls stay in full precision.
 """
 import ast
 import pathlib
@@ -16,17 +18,25 @@ import torch
 
 import jax.numpy as jnp
 
+from trilinos_tpu.galeri import fem as jfem
 from trilinos_tpu.galeri import laplace3d as j_laplace3d
+from trilinos_tpu.ops import csr_to_bdia as j_csr_to_bdia
 from trilinos_tpu.ops import spmv as j_spmv
+from trilinos_tpu.ops.pallas.bdia_spmv import (
+    bdia_plane_solver_op as j_bdia_plane_solver_op)
 from trilinos_tpu.precond import SaAmg as JSaAmg
+from trilinos_tpu.precond.block_amg import BlockStructuredAmg as JBlockAmg
 from trilinos_tpu.solvers import cg as j_cg
 
 import trilinos_tpu_torch
-from trilinos_tpu_torch.entry import (block_entry, cheb_entry, entry,
+from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
+                                      cheb_entry, elasticity_entry, entry,
                                       fused_cg_entry, sstep_entry)
-from trilinos_tpu_torch.ops import (cg_fused_iteration, dia_spmv,
-                                    stencil_poly_apply, stencil_powers_apply,
-                                    stencil_spmv)
+from trilinos_tpu_torch.galeri import elasticity3d, rigid_body_modes
+from trilinos_tpu_torch.ops import (bdia_spmm, bdia_spmv, cg_fused_iteration,
+                                    dia_spmv, spgemm, stencil_poly_apply,
+                                    stencil_powers_apply, stencil_spmv)
+from trilinos_tpu_torch.precond import BlockStructuredAmg
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -85,6 +95,66 @@ def test_new_paths_launch_no_kernel_on_the_cpu():
     assert stencil_powers_apply.stage_launches == 0
 
 
+def jax_elasticity_rhs(a, npad):
+    b = np.zeros(npad)
+    b[:a.shape[0]] = np.random.default_rng(0).standard_normal(a.shape[0])
+    return b
+
+
+@pytest.mark.parametrize("coarse_max", [3000, 512])
+def test_elasticity_entry_matches_jax(coarse_max):
+    """``bench_elasticity_amg``'s solve at 8³ in f64. With the entry's
+    "coarse: max size" 3000 the 1536 dofs are the coarsest level (no
+    BDIA level); 512 gives one BDIA level with b = 3 → k = 6."""
+    dims = (8, 8, 8)
+    params = {"dtype": np.float64, "coarse: max size": coarse_max}
+    amg = None
+    calls = (spgemm.native_calls, spgemm.numpy_calls)
+    if coarse_max != 3000:
+        amg = BlockStructuredAmg(
+            elasticity3d(*dims, e_mod=1.0), params, node_dims=dims,
+            nullspace=rigid_body_modes(*dims), n_equations=3,
+            device="cpu").compute()
+        # the level's smoothed P (two products) and PᵀAP (two), natively
+        assert (spgemm.native_calls - calls[0],
+                spgemm.numpy_calls - calls[1]) == (4, 0)
+    bdia_spmv.launches = 0
+    step, (b, state) = elasticity_entry(dims, np.float64, device="cpu",
+                                        amg=amg)
+    res = step(b, state)
+    ja = jfem.elasticity3d(*dims, e_mod=1.0)
+    jm = JBlockAmg(ja, params, node_dims=dims,
+                   nullspace=jfem.rigid_body_modes(*dims),
+                   n_equations=3).compute()
+    assert len(jm.levels) == (0 if amg is None else 1)
+    dev = jm.levels[0]["a"] if jm.levels else j_csr_to_bdia(ja, 3)
+    jb = jax_elasticity_rhs(ja, dev.n_rows_pad)
+    np.testing.assert_array_equal(b.numpy(), jb)
+    jres = j_cg(lambda v: j_spmv(dev, v), jnp.asarray(jb), prec=jm,
+                rtol=1e-5, maxiter=100)
+    assert bool(res.converged) and bool(jres.converged)
+    assert res.iters == int(jres.iters)
+    assert rel(res.x.numpy(), jres.x) <= 1e-10
+    assert bdia_spmv.launches == 0
+
+
+def test_bdia_cg_entry_matches_jax():
+    """``bench_bdia_solve``'s plane-layout CG at 8³ in f64, 400 iterations
+    at rtol 0."""
+    bdia_spmm.launches = 0
+    step, (b,) = bdia_cg_entry((8, 8, 8), dtype=np.float64, device="cpu")
+    res = step(b)
+    ja = j_csr_to_bdia(jfem.elasticity3d(8, 8, 8, e_mod=1.0), 3)
+    op, pack, unpack = j_bdia_plane_solver_op(ja)
+    jb = jax_elasticity_rhs(ja, ja.n_rows_pad)
+    np.testing.assert_array_equal(b.numpy(), jb)
+    jres = j_cg(op, pack(jnp.asarray(jb)), rtol=0.0, maxiter=400)
+    assert res.iters == int(jres.iters) == 400
+    assert res.x.shape == b.shape
+    assert rel(res.x.numpy(), unpack(jres.x)) <= 1e-10
+    assert bdia_spmm.launches == 0
+
+
 def test_entry_inputs_match_graft_entry():
     from __graft_entry__ import entry as graft_entry
 
@@ -116,7 +186,12 @@ def test_port_imports_no_jax():
             "trilinos_tpu_torch/ops/cg_fused.py",
             "trilinos_tpu_torch/precond/chebyshev.py",
             "trilinos_tpu_torch/eigen/lanczos.py",
-            "trilinos_tpu_torch/solvers/sstep_gmres.py"} <= names
+            "trilinos_tpu_torch/solvers/sstep_gmres.py",
+            "trilinos_tpu_torch/ops/bdia_spmv.py",
+            "trilinos_tpu_torch/ops/fe.py",
+            "trilinos_tpu_torch/galeri/fem.py",
+            "trilinos_tpu_torch/precond/block_amg.py",
+            "trilinos_tpu_torch/native/__init__.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -128,7 +203,8 @@ def test_default_device_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
-    for fn in (block_entry, cheb_entry, sstep_entry, fused_cg_entry):
+    for fn in (block_entry, cheb_entry, sstep_entry, fused_cg_entry,
+               elasticity_entry, bdia_cg_entry):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
     from trilinos_tpu_torch.galeri import laplace3d

@@ -4,7 +4,9 @@ The functions here take numpy arrays and plain fields — never JAX objects
 by type — so both packages can apply the same hierarchy: a caller turns
 every array of the JAX package's ``SaAmg.state()`` into numpy (for example
 with ``jax.tree_util.tree_map(np.asarray, state)``) and hands it to
-:func:`amg_state_from_jax`.
+:func:`amg_state_from_jax`, or the same of a ``BlockStructuredAmg.state()``
+to :func:`block_amg_state_from_jax`. bfloat16 arrays are widened to float32
+on the host (exact) and narrowed back on the device.
 """
 from __future__ import annotations
 
@@ -12,9 +14,20 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .ops.formats import DiaMatrix, dia_from_host
+from .ops.formats import BdiaMatrix, DiaMatrix, dia_from_host
 from .ops.stencil_op import StencilOp
-from .precond.amg import _structured_block
+from .precond.amg import structured_block
+
+
+def _to_device(arr, device) -> torch.Tensor:
+    """A tensor on ``device`` with ``arr``'s values and element type
+    (float32, float64 or bfloat16)."""
+    arr = np.array(arr)  # a writable copy: torch wraps it without copying
+    if arr.dtype.name == "bfloat16":
+        # torch reads no numpy bfloat16; the widening to f32 is exact
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            resolve_device(device), torch.bfloat16)
+    return torch.from_numpy(arr).to(resolve_device(device))
 
 
 def dia_from_numpy(data, offsets, n_rows: int, n_cols: int, nnz: int,
@@ -25,13 +38,28 @@ def dia_from_numpy(data, offsets, n_rows: int, n_cols: int, nnz: int,
     data = np.array(data)  # a writable copy: torch wraps it without copying
     data = data.reshape(data.shape[0], -1)
     if data.dtype.name == "bfloat16":
-        # torch reads no numpy bfloat16; the widening to f32 is exact
-        t = torch.from_numpy(data.astype(np.float32)).to(
-            resolve_device(device), torch.bfloat16)
-        return DiaMatrix(data=t, offsets=tuple(int(o) for o in offsets),
+        return DiaMatrix(data=_to_device(data, device),
+                         offsets=tuple(int(o) for o in offsets),
                          n_rows=n_rows, n_cols=n_cols, nnz=nnz)
     return dia_from_host(data, offsets, n_rows, n_cols, nnz, data.dtype,
                          device)
+
+
+def bdia_from_numpy(data, offsets, block_size: int, n_rows: int, n_cols: int,
+                    nnz: int, device=None) -> BdiaMatrix:
+    """A BdiaMatrix from planes stored ``(nd, b, b, nbr_pad)`` or in the JAX
+    package's lane-packed ``(nd·b², nbr_pad // 128, 128)`` layout. The
+    element type is kept: float32, float64 or bfloat16."""
+    data = np.asarray(data)
+    b = int(block_size)
+    nd = len(offsets)
+    if data.size % (nd * b * b):
+        raise ValueError(f"BDIA data of shape {data.shape} does not hold "
+                         f"{nd} offsets of {b}x{b} blocks")
+    t = _to_device(data.reshape(nd, b, b, -1), device)
+    return BdiaMatrix(data=t, offsets=tuple(int(o) for o in offsets),
+                      block_size=b, n_rows=int(n_rows), n_cols=int(n_cols),
+                      nnz=int(nnz))
 
 
 def stencil_from_fields(dims, offsets, coeffs, n_rows_pad: int,
@@ -48,7 +76,7 @@ def _level_dims(dims, n_levels: int):
     """Grid dims of each level of a structured hierarchy on ``dims``."""
     out = [tuple(int(d) for d in dims) + (1,) * (3 - len(dims))]
     for _ in range(n_levels - 1):
-        block = _structured_block(out[-1])
+        block = structured_block(out[-1])
         out.append(tuple(d // b for d, b in zip(out[-1], block)))
     return out
 
@@ -78,3 +106,22 @@ def amg_state_from_jax(np_state: dict, dims, device=None) -> dict:
     coarse_inv = torch.from_numpy(np.array(np_state["coarse_inv"]))
     return {"levels": levels,
             "coarse_inv": coarse_inv.to(resolve_device(device))}
+
+
+def block_amg_state_from_jax(np_state: dict, device=None) -> dict:
+    """The port's ``BlockStructuredAmg.state()`` from the JAX package's one
+    with every array already numpy: each level's BDIA operator (3-D
+    lane-packed or 4-D data), Jacobi diagonal and tentative blocks ``q``,
+    and the coarse pseudo-inverse. Apply it with the ``apply_state`` of a
+    port hierarchy built on the same problem, which checks the level
+    count."""
+    levels = []
+    for s in np_state["levels"]:
+        a = s["a"]
+        levels.append({
+            "a": bdia_from_numpy(a.data, a.offsets, a.block_size, a.n_rows,
+                                 a.n_cols, a.nnz, device),
+            "dinv": _to_device(s["dinv"], device),
+            "q": _to_device(s["q"], device)})
+    return {"levels": levels,
+            "coarse_inv": _to_device(np_state["coarse_inv"], device)}

@@ -27,8 +27,6 @@
 // column fastest, in blocks of (k, rows): the k threads of a row read the
 // same data[d, i] (one broadcast load) and k contiguous x values. Same
 // order, widening and rounding as the single-vector kernel.
-#include <cuda_bf16.h>
-
 #include "tt_common.cuh"
 
 #define TT_MAX_DIAGS 512
@@ -38,10 +36,6 @@ struct DiaOffsets {
   int n;
   int off[TT_MAX_DIAGS];
 };
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ double widen(double v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename TD, typename TX>
 __global__ void dia_kernel(const TD* __restrict__ data, const TX* __restrict__ x,

@@ -1,6 +1,7 @@
 // Shared by the hand-written kernels of csrc/: the stencil's terms as a
-// kernel argument and the round-to-nearest arithmetic that keeps each
-// kernel bitwise equal to its plain PyTorch version.
+// kernel argument, the round-to-nearest arithmetic that keeps each
+// kernel bitwise equal to its plain PyTorch version, and the widening of
+// stored values to the type of the sum.
 //
 // The parity rule: every multiply and add goes through an _rn intrinsic,
 // which the compiler may not contract into a fused multiply-add, and each
@@ -11,6 +12,7 @@
 // rebuilds every kernel.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define TT_MAX_TERMS 32
@@ -54,3 +56,8 @@ __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, 
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+
+// A stored value in the type of the sum: bf16 data are summed in f32.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }

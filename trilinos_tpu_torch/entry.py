@@ -1,4 +1,4 @@
-"""The port's paths on the Galeri Laplace3D stencil.
+"""The port's paths: the Galeri Laplace3D stencil and 3-D elasticity.
 
 ``entry()``: structured-AMG-preconditioned CG on a matrix-free Galeri
 Laplace3D stencil, the twin of ``__graft_entry__.entry()``. It builds the
@@ -23,21 +23,37 @@ max_restarts = 4, rtol = 0, σ = 12: five cycles of 32 basis vectors);
 ``fused_cg_entry()``: unpreconditioned CG with one fused iteration kernel
 per iteration (rtol 1e-5, maxiter 2000 by default); ``step(b)``.
 
+``elasticity_entry()``: CG preconditioned by the block-structured
+null-space AMG (``BlockStructuredAmg``: rigid-body modes, BDIA levels) on
+Galeri ``elasticity3d`` with E = 1, the JAX package's bench configuration
+(``"coarse: max size"`` 3000, rtol 1e-5, maxiter 100); ``step(b, state)``.
+
+``bdia_cg_entry()``: unpreconditioned CG on the same operator stored as a
+BdiaMatrix, run in plane layout through ``bdia_plane_solver_op`` for a
+fixed ``iters`` iterations (rtol 0), the JAX bench's plane-layout solve;
+``step(b)`` returns the result with x back in the interleaved layout. An
+already packed operator may be passed as ``a=``; grid, dtype and device
+then come from it.
+
 Every entry takes ``device`` (``None`` means the CUDA card and raises
-without one); the hierarchy paths also take an already-built ``SaAmg`` as
+without one); the hierarchy paths also take an already-built hierarchy as
 ``amg=`` so one hierarchy can serve several paths, and their grid, dtype
 and device then come from it. Right-hand sides are seed-0 normals with
 zero pad rows.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .device import resolve_device, torch_dtype
-from .galeri import laplace3d
+from .galeri import elasticity3d, laplace3d, rigid_body_modes
+from .ops.bdia_spmv import bdia_plane_solver_op
+from .ops.formats import csr_to_bdia
 from .ops.matvec import spmv
-from .precond import SaAmg
+from .precond import BlockStructuredAmg, SaAmg
 from .solvers import block_gmres, cg, cg_fused, sstep_gmres
 
 
@@ -111,3 +127,35 @@ def fused_cg_entry(dims=(16, 16, 16), dtype=np.float32, device=None,
         return cg_fused(op, b_vec, rtol=rtol, maxiter=maxiter)
 
     return step, (_rhs(op, resolve_device(device), torch_dtype(dtype)),)
+
+
+def elasticity_entry(dims=(8, 8, 8), dtype=np.float32, device=None,
+                     amg=None):
+    if amg is None:
+        a = elasticity3d(*dims, e_mod=1.0, dtype=dtype)
+        amg = BlockStructuredAmg(
+            a, {"dtype": dtype, "coarse: max size": 3000}, node_dims=dims,
+            nullspace=rigid_body_modes(*dims), n_equations=3,
+            device=resolve_device(device)).compute()
+    op, m = amg.fine_op, amg
+
+    def step(b_vec: torch.Tensor, st: dict):
+        return cg(lambda v: spmv(op, v), b_vec,
+                  prec=lambda v: m.apply_state(st, v), rtol=1e-5,
+                  maxiter=100)
+
+    return step, (_rhs(op, m.device, m.dtype), m.state())
+
+
+def bdia_cg_entry(dims=(8, 8, 8), iters=400, dtype=np.float32, device=None,
+                  a=None):
+    if a is None:
+        a = csr_to_bdia(elasticity3d(*dims, e_mod=1.0, dtype=dtype), 3,
+                        dtype=dtype, device=resolve_device(device))
+    op, pack, unpack = bdia_plane_solver_op(a)
+
+    def step(b_vec: torch.Tensor):
+        res = cg(op, pack(b_vec), rtol=0.0, maxiter=iters)
+        return dataclasses.replace(res, x=unpack(res.x))
+
+    return step, (_rhs(a, a.data.device, a.dtype),)

@@ -1,10 +1,11 @@
-"""Local sparse-matrix storage: host CSR and device DIA.
+"""Local sparse-matrix storage: host CSR, device DIA and block DIA.
 
 Counterpart of ``trilinos_tpu/ops/formats.py``. ``CsrHost`` is the numpy
 assembly substrate (a copy: the port imports nothing of the JAX package).
 ``DiaMatrix`` holds its diagonals as one torch tensor of shape
-``(n_diags, n_rows_pad)``; the JAX package's ``(nd, R, 128)`` lane packing
-is TPU layout and has no counterpart here.
+``(n_diags, n_rows_pad)`` and ``BdiaMatrix`` its block planes as one
+``(nd, b, b, nbr_pad)`` tensor; the JAX package's ``(…, R, 128)`` lane
+packing is TPU layout and has no counterpart here.
 
 Padding convention (as in the reference): rows added to reach the padded
 row count are identity rows and the matching vector entries are zero, so
@@ -169,3 +170,132 @@ def csr_to_dia(a: CsrHost, dtype=None, n_rows_pad: int | None = None,
         # identity padding rows (keeps the Jacobi diagonal invertible)
         data[offsets.index(0), m:n_rows_pad] = 1.0
     return dia_from_host(data, offsets, m, n, a.nnz, dtype, device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BdiaMatrix:
+    """Block-diagonal (block-stencil) storage for operators with ``b`` dofs
+    per node whose block pattern has constant block-column offsets (Q1
+    elasticity: 9 or 27 node neighbours). With residue planes
+    ``xp[j, q] = x[q·b + j]`` the apply is
+
+        yp[i, q] = Σ_d Σ_j data[d, i, j, q] · xp[j, q + offsets[d]].
+
+    ``data`` is ``(nd, b, b, nbr_pad)``; ``offsets`` are block offsets
+    (block column − block row). Out-of-range plane positions hold zeros, so
+    cyclic shifts are exact; padding block rows are identity blocks.
+    """
+
+    data: torch.Tensor
+    offsets: tuple[int, ...]
+    block_size: int
+    n_rows: int
+    n_cols: int
+    nnz: int
+
+    def __post_init__(self):
+        b = self.block_size
+        if self.data.ndim != 4 or self.data.shape[:3] != (
+                len(self.offsets), b, b):
+            raise ValueError(
+                f"BDIA data shape {tuple(self.data.shape)} does not match "
+                f"{len(self.offsets)} offsets of {b}x{b} blocks")
+
+    @property
+    def nbr_pad(self) -> int:
+        """Padded block-row count."""
+        return self.data.shape[3]
+
+    @property
+    def n_rows_pad(self) -> int:
+        return self.nbr_pad * self.block_size
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+    def to_dense(self) -> np.ndarray:
+        """Debug helper: the logical (unpadded) dense matrix, float64."""
+        b = self.block_size
+        out = np.zeros((self.n_rows, self.n_cols))
+        data = self.data.double().cpu().numpy()
+        q = np.arange(self.n_rows // b)
+        for d, off in enumerate(self.offsets):
+            for i in range(b):
+                for j in range(b):
+                    r, c = q * b + i, (q + off) * b + j
+                    ok = (r < self.n_rows) & (c >= 0) & (c < self.n_cols)
+                    out[r[ok], c[ok]] += data[d, i, j, q[ok]]
+        return out
+
+
+def bdia_from_host(data: np.ndarray, offsets, block_size: int, n_rows: int,
+                   n_cols: int, nnz: int, dtype, device=None) -> BdiaMatrix:
+    """Move assembled ``(nd, b, b, nbr_pad)`` host data to ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(data))
+    t = t.to(device=resolve_device(device), dtype=torch_dtype(dtype))
+    return BdiaMatrix(data=t, offsets=tuple(int(o) for o in offsets),
+                      block_size=int(block_size), n_rows=n_rows,
+                      n_cols=n_cols, nnz=nnz)
+
+
+def pad_csr_square(a: CsrHost, multiple: int) -> CsrHost:
+    """Extend a square host CSR with identity rows/cols so that both dims
+    are a multiple of ``multiple``."""
+    m, n = a.shape
+    if m != n:
+        raise ValueError("pad_csr_square requires a square matrix")
+    mp = round_up(m, multiple)
+    if mp == m:
+        return a
+    extra = np.arange(m, mp)
+    rows = np.concatenate([a._rows(), extra])
+    cols = np.concatenate([a.cols.astype(np.int64), extra])
+    vals = np.concatenate([a.vals, np.ones(mp - m, dtype=a.vals.dtype)])
+    return CsrHost.from_coo(rows, cols, vals, (mp, mp), sum_duplicates=False)
+
+
+def csr_to_bdia(a: CsrHost, block_size: int, dtype=None,
+                nbr_pad: int | None = None, max_diags: int | None = None,
+                device=None) -> BdiaMatrix:
+    """Pack host CSR into block-diagonal storage on ``device``.
+
+    Scalar entry (r, c) lands in plane (d, r % b, c % b) at block row
+    r // b, where d indexes the block offset c//b − r//b. A square matrix
+    whose dimension is not a multiple of ``block_size`` is first extended
+    with identity rows/cols; a square matrix without a zero block offset
+    gets an (identity-padded) zero-offset plane.
+    """
+    b = block_size
+    m, n = a.shape
+    if m == n and m % b != 0:
+        a = pad_csr_square(a, b)
+        m, n = a.shape
+    if m % b != 0 or n % b != 0:
+        raise ValueError(f"BDIA needs dims divisible by b={b}, got {a.shape}")
+    mb = m // b
+    if nbr_pad is None:
+        nbr_pad = round_up(mb, ROW_ALIGN)
+    dtype = a.vals.dtype if dtype is None else dtype
+    rows_rep = a._rows()
+    brow = rows_rep // b
+    offs = a.cols.astype(np.int64) // b - brow
+    uniq = np.unique(offs)
+    if max_diags is not None and len(uniq) > max_diags:
+        raise ValueError(f"{len(uniq)} block offsets exceeds limit {max_diags}")
+    if m == n and 0 not in uniq:
+        uniq = np.sort(np.append(uniq, 0))
+    data = np.zeros((len(uniq), b, b, nbr_pad), dtype=numpy_dtype(dtype))
+    d_idx = np.searchsorted(uniq, offs)
+    data[d_idx, rows_rep % b, a.cols % b, brow] = a.vals
+    offsets = tuple(int(o) for o in uniq)
+    if m == n:
+        # identity blocks on the padding block rows
+        d0 = offsets.index(0)
+        for i in range(b):
+            data[d0, i, i, mb:nbr_pad] = 1.0
+    return bdia_from_host(data, offsets, b, m, n, a.nnz, dtype, device)

@@ -1,18 +1,38 @@
 """Sparse matrix-matrix algebra on host CSR (AMG setup time).
 
-Counterpart of ``trilinos_tpu/ops/matrix_ops.py``: the vectorized numpy
-path only. The JAX package's native C++ SpGEMM helper is queued in
-ROADMAP.md; the products agree with it to rounding.
+Counterpart of ``trilinos_tpu/ops/matrix_ops.py``. :func:`spgemm` runs the
+port's native C++ helper (``trilinos_tpu_torch/native``, built with g++ at
+first use; its values are float64, as the JAX package's) and takes the
+vectorized numpy path, :func:`spgemm_numpy`, only where no g++ is found.
+``spgemm.native_calls`` and ``spgemm.numpy_calls`` count which path served.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..native import spgemm_native
 from .formats import CsrHost
 
 
 def spgemm(a: CsrHost, b: CsrHost) -> CsrHost:
     """C = A @ B (duplicate products summed)."""
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
+    c = spgemm_native(a, b)
+    if c is None:
+        spgemm.numpy_calls += 1
+        return spgemm_numpy(a, b)
+    spgemm.native_calls += 1
+    return CsrHost(*c, (a.shape[0], b.shape[1]))
+
+
+spgemm.native_calls = 0
+spgemm.numpy_calls = 0
+
+
+def spgemm_numpy(a: CsrHost, b: CsrHost) -> CsrHost:
+    """C = A @ B by vectorized numpy: the plain version of the native
+    helper (same structure, values in the operands' type)."""
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
     a_rows = a._rows()

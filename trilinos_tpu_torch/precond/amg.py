@@ -18,7 +18,8 @@ even dimension: aggregates are 2-blocks per coarsened axis, so
 
 Setup is host numpy; the level operators, Jacobi diagonals and coarse
 inverse live on ``device``. The uncoupled (CSR) branch is not ported yet
-and raises ``NotImplementedError``.
+and raises ``NotImplementedError``; its null-space tentative prolongator
+and prolongator smoothing are here, as ``precond/block_amg.py`` uses them.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 
 from ..device import resolve_device, torch_dtype
 from ..ops.formats import CsrHost, ROW_ALIGN, round_up
+from ..ops.matrix_ops import diag_matrix, spadd, spgemm
 from ..ops.matvec import spmv
 from ..ops.stencil_op import StencilOp
 from ..utils.params import Param
@@ -59,7 +61,7 @@ _UNCOUPLED = ("the uncoupled SA branch (CSR input, stored P/R) is not "
               "ported yet (ROADMAP.md queue 1 item 5)")
 
 
-def _structured_block(dims) -> tuple[int, ...]:
+def structured_block(dims) -> tuple[int, ...]:
     """Per-axis aggregation factor: 2 where the axis is coarsenable."""
     return tuple(2 if (d % 2 == 0 and d >= 4) else 1 for d in dims)
 
@@ -94,6 +96,64 @@ def block_pair_dup(e: torch.Tensor, cdims, block) -> torch.Tensor:
         if bb == 2:
             t = t.repeat_interleave(2, dim=ax)
     return t.reshape((-1,) + tail)
+
+
+def tentative_prolongator_nullspace(node_agg: np.ndarray, b: int,
+                                    ns: np.ndarray):
+    """Null-space-preserving tentative prolongator (MueLu
+    TentativePFactory with a user "Nullspace", e.g. rigid-body modes):
+    per aggregate, the restriction of the null space to the aggregate's
+    dofs is QR-factored — Q becomes the aggregate's P_t block (columns
+    orthonormal) and R the aggregate's rows of the COARSE null space,
+    so ``P_t @ ns_coarse == ns`` exactly and every level interpolates
+    the modes the smoother cannot damp.
+
+    Returns ``(P_t, ns_coarse)``. Aggregates whose dof count is below
+    the null-space dimension get zero-padded Q columns (rank handled by
+    the coarsest pseudo-inverse)."""
+    k = ns.shape[1]
+    nagg = int(node_agg.max()) + 1
+    dof_agg = np.repeat(node_agg, b)
+    n = len(dof_agg)
+    order = np.argsort(dof_agg, kind="stable")
+    counts = np.bincount(dof_agg, minlength=nagg)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    rows_all, cols_all, vals_all = [], [], []
+    ns_c = np.zeros((nagg * k, k))
+    # batch the per-aggregate QRs by aggregate size
+    for m in np.unique(counts):
+        sel = np.nonzero(counts == m)[0]
+        if m == 0 or not len(sel):
+            continue
+        dofs = np.stack([order[starts[a]:starts[a] + m] for a in sel])
+        blocks = ns[dofs]                      # (n_sel, m, k)
+        q, r = np.linalg.qr(blocks)            # q (n_sel, m, kk)
+        kk = q.shape[2]
+        if kk < k:
+            q = np.pad(q, ((0, 0), (0, 0), (0, k - kk)))
+            r = np.pad(r, ((0, 0), (0, k - kk), (0, 0)))
+        rows_all.append(np.repeat(dofs, k, axis=1).reshape(-1))
+        cols_all.append(
+            (sel[:, None, None] * k
+             + np.arange(k)[None, None, :]
+             + np.zeros((1, m, 1), np.int64)).reshape(-1))
+        vals_all.append(q.reshape(-1))
+        ns_c[(sel[:, None] * k + np.arange(k)).reshape(-1)] = (
+            r.reshape(-1, k))
+    p_t = CsrHost.from_coo(np.concatenate(rows_all),
+                           np.concatenate(cols_all),
+                           np.concatenate(vals_all), (n, nagg * k),
+                           sum_duplicates=False)
+    return p_t, ns_c
+
+
+def smooth_prolongator(a: CsrHost, p_t: CsrHost, omega: float) -> CsrHost:
+    """P = (I − ω D⁻¹ A) P_t, with the ω the caller shares with its
+    matrix-free transfer applies."""
+    d = a.diagonal()
+    dinv = 1.0 / np.where(d != 0, d, 1.0)
+    da = spgemm(diag_matrix(omega * dinv), a)
+    return spadd(p_t, spgemm(da, p_t), 1.0, -1.0)
 
 
 def _pad_rows(v: torch.Tensor, npad: int) -> torch.Tensor:
@@ -148,7 +208,7 @@ def build_classified_hierarchy(op: StencilOp, max_levels: int,
     for _ in range(max_levels - 1):
         if int(np.prod(dims)) <= coarse_max:
             break
-        block = _structured_block(dims)
+        block = structured_block(dims)
         if all(b == 1 for b in block):
             break
         rep_c, omega = galerkin_classified(rep, block, damping, drop_tol)
@@ -189,7 +249,7 @@ class SaAmg(Preconditioner):
         can_structured = (
             isinstance(cand, StencilOp)
             and _is_symmetric_stencil(cand.offsets, cand.coeffs)
-            and any(b == 2 for b in _structured_block(cand.dims)))
+            and any(b == 2 for b in structured_block(cand.dims)))
         if agg_t == "structured" and not can_structured:
             raise ValueError(
                 "aggregation: type 'structured' needs a symmetric "

@@ -25,7 +25,8 @@ import numpy as np
 
 from ..galeri.stencils import stencil_csr, stencil_dia
 from ..ops.formats import CsrHost
-from ..ops.matrix_ops import diag_matrix, ptap, spadd, spgemm
+from ..ops.matrix_ops import ptap, spadd
+from .amg import smooth_prolongator
 
 Offset = tuple[int, int, int]
 
@@ -210,12 +211,8 @@ def _galerkin_on_grid(rep: ClassifiedStencil, dims, block,
     """Direct PᵀAP on a concrete grid: A from the classified rep,
     P = (I − ω D⁻¹A) P_t. Used for probes and for verification."""
     a = rep.materialize_csr(dims)
-    d = a.diagonal()
-    dinv = 1.0 / np.where(d != 0, d, 1.0)
-    p_t = _block_tentative(dims, block)
-    ap = spgemm(spgemm(diag_matrix(omega * dinv), a), p_t)
-    p = spadd(p_t, ap, 1.0, -1.0)
-    return ptap(a, p)
+    return ptap(a, smooth_prolongator(a, _block_tentative(dims, block),
+                                      omega))
 
 
 def _read_classified(a_c: CsrHost, pc_dims, L) -> ClassifiedStencil:
