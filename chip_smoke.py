@@ -389,18 +389,39 @@ def main():
         torch.cuda.synchronize()
         err["stencil_spmv"] = max(err["stencil_spmv"], check(
             f"stencil {label}", y, stencil_spmv_plain(op, x), TOL[dt]))
-    mv_cases = [(f"{GRID} k={NRHS}", DIMS, NRHS)] + [
-        (f"10x10x8 (800 rows in 1024) k={k}", (10, 10, 8), k)
-        for k in (1, 3, NRHS)]
-    for i, (label, dims, k) in enumerate(mv_cases):
-        op = StencilOp.create(dims, lap)
-        x = randn((op.n_rows_pad, k), torch.float32, seed=40 + i)
+    # the stencil SpMM, bitwise, at the block path's shape and at the edges
+    # of its launch plan: a grid whose nx, ny are multiples of no block's
+    # points (nor of the fused iteration's tile, nor nz of its z-chunk),
+    # k = 1, 3, 4, pad rows, f64, an X whose data pointer is not 16-byte
+    # aligned (the narrow-load instance), a radius-2 operator
+    wide = lap + [((-2, 0, 0), 0.25), ((0, 2, 0), -0.125), ((0, 0, -2), 0.5),
+                  ((2, -1, 1), 0.0625)]
+    odd = (37, 19, 11)
+    mv_cases = [  # label, dims, stencil, k, dtype, X offset in its buffer
+        (f"{GRID} k={NRHS}", DIMS, lap, NRHS, torch.float32, 0),
+        (f"{GRID} k=4", DIMS, lap, 4, torch.float32, 0),
+        ("128^3 f64 k=16", (128, 128, 128), lap, NRHS, torch.float64, 0),
+        (f"128^3 k={NRHS}, X 4 bytes past 16-byte alignment",
+         (128, 128, 128), lap, NRHS, torch.float32, 1),
+        ("10x10x8 (800 rows in 1024 pad rows) k=16", (10, 10, 8), lap, NRHS,
+         torch.float32, 0)]
+    mv_cases += [(f"37x19x11 k={k}", odd, lap, k, torch.float32, 0)
+                 for k in (1, 3, 4, NRHS)]
+    mv_cases += [
+        ("37x19x11 k=16, X 4 bytes past 16-byte alignment", odd, lap, NRHS,
+         torch.float32, 1),
+        ("37x19x11 radius 2 k=16", odd, wide, NRHS, torch.float32, 0),
+        ("37x19x11 radius 2 k=3 f64", odd, wide, 3, torch.float64, 0)]
+    for i, (label, dims, st, k, dt, shift) in enumerate(mv_cases):
+        op = StencilOp.create(dims, st)
+        buf = randn(op.n_rows_pad * k + shift, dt, seed=40 + i)
+        x = buf[shift:].view(op.n_rows_pad, k)
         y = stencil_spmm(op, x)
         torch.cuda.synchronize()
         err["stencil_spmm"] = max(err["stencil_spmm"], check(
-            f"stencil SpMM {label} f32", y, stencil_spmv_plain(op, x),
-            TOL[torch.float32]))
-        del x, y
+            f"stencil SpMM {label} {str(dt)[6:]} (X pointer % 16 = "
+            f"{x.data_ptr() % 16})", y, stencil_spmv_plain(op, x), 0.0))
+        del buf, x, y
 
     # -- 4. one hierarchy for both paths; DIA kernels on every level ---------
     fine = laplace3d(*DIMS, dtype=np.float32, fmt="stencil")
@@ -502,10 +523,11 @@ def main():
             f"{name} {label}", y, plain(op, stages, x, z_bounds=zb), 0.0))
         del x, y
     # one fused CG iteration from the same state: the five vectors bitwise
-    # and scal to the tolerance (max_abs_err reads the iterations held to
-    # the bit); then five chained iterations, each side on its own outputs;
-    # then a sixth from the plain chain's state on both sides, where β and
-    # α_prev are not 0, again bitwise
+    # and scal to the tolerance; then five chained iterations, each side on
+    # its own outputs; then a sixth from the plain chain's state on both
+    # sides, where β and α_prev are not 0, again bitwise. max_abs_err reads
+    # every single-iteration check, scal's absolute error included (scal
+    # is held to CG_FUSED_TOL relative), and not the chained ones
     b0 = randn(fine.n_rows_pad, torch.float32, seed=400)
     w0 = stencil_spmv_plain(fine, b0)
     zeros = torch.zeros_like(b0)
@@ -533,6 +555,28 @@ def main():
             f"(β {rz / rz_prev:.6g}, α_prev {alpha_prev:.6g}) {nm}", got,
             want, CG_FUSED_TOL if nm == "scal" else 0.0))
     del k_state, p_state, b0, w0, zeros
+    # one iteration at the edges of its tile, from a first state (β = 0)
+    # and from one with β, α_prev ≠ 0: the odd grid, 128³ f64, radius 2
+    for label, dims, st, dt in (
+            ("37x19x11 f32", odd, lap, torch.float32),
+            ("128^3 f64", (128, 128, 128), lap, torch.float64),
+            ("37x19x11 radius 2 f32", odd, wide, torch.float32)):
+        op = StencilOp.create(dims, st, n_rows_pad=int(np.prod(dims)))
+        r0, p0, q0 = randn((3, op.n_rows), dt, seed=410)
+        w0 = stencil_spmv_plain(op, r0)
+        first = torch.stack([r0 @ r0, r0 @ w0, r0[0] * 0, r0[0] * 0 + 1])
+        later = torch.stack([r0 @ r0, r0 @ w0, r0 @ r0 * 1.25,
+                             r0[0] * 0 + 0.5])
+        for when, scal, p_, q_ in (("β = 0", first, p0 * 0, q0 * 0),
+                                   ("β ≠ 0", later, p0, q0)):
+            cg_in = (p0, r0, w0, p_, q_, scal.reshape(1, 4))
+            got = cg_fused_iteration(op, *cg_in)
+            want = cg_fused_iteration_plain(op, *cg_in)
+            torch.cuda.synchronize()
+            for nm, g, w_ in zip(names, got, want):
+                err["cg_fused"] = max(err["cg_fused"], check(
+                    f"cg_fused {label} one iteration, {when}, {nm}", g, w_,
+                    CG_FUSED_TOL if nm == "scal" else 0.0))
 
     # -- 6. the CG path, then the plain versions as reference ----------------
     res, solve_ms, cg_launches, cg_per, cg_gaps = run_marked(

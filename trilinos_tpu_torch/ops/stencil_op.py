@@ -15,13 +15,18 @@ a 3-D launch grid (no integer division) and reads its neighbours through
 L1/L2. Terms are summed in offset order without fused multiply-add, so
 the kernel matches :func:`stencil_spmv_plain` to the last bit.
 
-The multivector apply (x of shape (n_pad, k), row-major, the JAX
+The multivector apply (X of shape (n_pad, k), row-major, the JAX
 package's public layout) is the same file's ``stencil_mv_kernel``; it
 replaces ``stencil_spmm_packed`` (``_plane_kernel_mv``). Bound by bytes,
 2·n·k·itemsize over 3.35 TB/s (≈ 0.641 ms for 256³, k = 16, f32). One
-thread per (row, column), column fastest, so each row's k values are one
-contiguous load; the JAX wrapper's transposes to (k, R, 128) were TPU
-layout work and the port has none.
+thread per (row, vw columns), columns fastest, so each row's k values are
+contiguous loads; a thread moves its vw columns as one 16-byte load per
+term and one store (4 × f32, 2 × f64), narrower where k or the pointers
+do not allow it. :func:`spmm_plan` picks vw and the launch on the host;
+the launcher checks it. Terms are summed in offset order without fused
+multiply-add, so the result is bitwise the plain version's. The JAX
+wrapper's transposes to (k, R, 128) were TPU layout work and the port has
+none.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from . import _build
 from .dispatch import use_kernel
 from .formats import round_up
 
-MAX_TERMS = 32  # csrc/stencil_spmv.cu TT_MAX_TERMS
+MAX_TERMS = 32  # csrc/tt_common.cuh TT_MAX_TERMS
 MAX_GRID_YZ = 65535  # CUDA limit on gridDim.y / gridDim.z
 
 
@@ -140,9 +145,59 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _I, _P, _P,
         _P, _P, _P, _P]
-_SIG_MV = _SIG[:7] + [_I] + _SIG[7:]
+_SIG_MV = _SIG[:7] + [_I] + _SIG[7:13] + [_P, _P]  # k, then the plan
 _TYPES = {torch.float32: "f32", torch.float64: "f64"}
 MAX_COLS = 1024  # csrc/stencil_spmv.cu TT_MAX_COLS
+VEC_BYTES = 16  # the widest load or store of one thread
+MV_THREADS = 256  # about this many threads in a SpMM block
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmmPlan:
+    """Launch of the SpMM kernel: ``vw`` columns a thread, a block of
+    (k / vw, rx, ry) threads over rx × ry points of one plane, one plane
+    per grid z."""
+
+    vw: int
+    block: tuple[int, int, int]
+    grid: tuple[int, int, int]
+
+    def fields(self) -> np.ndarray:
+        """The int32 array the C launcher reads."""
+        return np.asarray([self.vw, *self.block, *self.grid], dtype=np.int32)
+
+
+def spmm_plan(op: StencilOp, k: int, itemsize: int,
+              align: int = VEC_BYTES) -> SpmmPlan:
+    """The SpMM kernel's launch for X of shape (n_pad, k) with elements of
+    ``itemsize`` bytes whose pointers (X's and Y's) are multiples of
+    ``align`` bytes: vw is the widest of 16, 8, 4 bytes (then one element)
+    that divides the row and the alignment, and a block takes about
+    MV_THREADS threads. Raises ValueError where the launch breaks a
+    limit."""
+    if not 1 <= k <= MAX_COLS:
+        raise ValueError(f"stencil SpMM takes 1 ≤ k ≤ {MAX_COLS}, got {k}")
+    nx, ny, nz = op.dims
+    vw = VEC_BYTES // itemsize
+    while vw > 1 and (k % vw or align % (vw * itemsize)):
+        vw //= 2
+    lanes = k // vw
+    rx = min(nx, max(1, MV_THREADS // lanes))
+    ry = min(ny, max(1, MV_THREADS // (lanes * rx)))
+    grid = (-(-nx // rx), -(-ny // ry), nz)
+    if max(grid[1:]) > MAX_GRID_YZ:
+        raise ValueError(f"stencil SpMM: grid {grid} passes gridDim.y, "
+                         f"gridDim.z ≤ {MAX_GRID_YZ}")
+    return SpmmPlan(vw=vw, block=(lanes, rx, ry), grid=grid)
+
+
+def pointer_align(*tensors) -> int:
+    """The largest power of two up to VEC_BYTES dividing every data
+    pointer."""
+    bits = VEC_BYTES
+    for t in tensors:
+        bits |= t.data_ptr()
+    return bits & -bits
 
 
 @functools.lru_cache(maxsize=64)
@@ -155,31 +210,38 @@ def _terms(op: StencilOp):
             np.asarray(op.coeffs, dtype=np.float64))
 
 
-def _launch(kind: str, op: StencilOp, x: torch.Tensor, *cols) -> torch.Tensor:
-    """Checks shared by both kernels, then one launch of
-    ``stencil_<kind>_<type>``; ``cols`` is () or (k,)."""
+def _library():
+    return _build.load("stencil_spmv", {
+        f"stencil_{kd}_{t}": sig for kd, sig in (("spmv", _SIG),
+                                                  ("spmm", _SIG_MV))
+        for t in _TYPES.values()})
+
+
+def _call(fn: str, op: StencilOp, x: torch.Tensor, y: torch.Tensor, *extra,
+          plan: SpmmPlan | None = None) -> None:
+    """One launch of the C entry ``fn`` on x's stream: (x, y, n, n_pad,
+    nx, ny, nz, *extra, the terms[, plan], stream)."""
+    lib = _library()
+    dx, dy, dz, lin, c = _terms(op)
+    fields = None if plan is None else plan.fields()  # alive for the call
+    plan_args = () if fields is None else (fields.ctypes.data,)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(
+            x.data_ptr(), y.data_ptr(), op.n_rows, op.n_rows_pad, *op.dims,
+            *extra, len(op.offsets), dx.ctypes.data, dy.ctypes.data,
+            dz.ctypes.data, lin.ctypes.data, c.ctypes.data, *plan_args,
+            stream)
+    _build.check(lib, rc, fn)
+
+
+def _check_input(op: StencilOp, x: torch.Tensor) -> None:
     if x.dtype not in _TYPES:
         raise TypeError(f"stencil kernel takes float32/float64, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("stencil kernel takes a contiguous x")
-    nx, ny, nz = op.dims
-    if len(op.offsets) > MAX_TERMS or ny > MAX_GRID_YZ or nz > MAX_GRID_YZ:
-        raise ValueError(f"stencil kernel takes ≤ {MAX_TERMS} terms and "
-                         f"ny, nz ≤ {MAX_GRID_YZ}")
-    lib = _build.load("stencil_spmv", {
-        f"stencil_{kd}_{t}": sig for kd, sig in (("spmv", _SIG),
-                                                  ("spmm", _SIG_MV))
-        for t in _TYPES.values()})
-    dx, dy, dz, lin, c = _terms(op)
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"stencil_{kind}_{_TYPES[x.dtype]}")(
-            x.data_ptr(), y.data_ptr(), op.n_rows, op.n_rows_pad, nx, ny, nz,
-            *cols, len(op.offsets), dx.ctypes.data, dy.ctypes.data,
-            dz.ctypes.data, lin.ctypes.data, c.ctypes.data, stream)
-    _build.check(lib, rc, f"stencil_{kind}")
-    return y
+    if len(op.offsets) > MAX_TERMS:
+        raise ValueError(f"stencil kernel takes ≤ {MAX_TERMS} terms")
 
 
 def stencil_spmv(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
@@ -195,7 +257,11 @@ def stencil_spmv(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"stencil kernel takes x of shape "
                          f"({op.n_rows_pad},) or ({op.n_rows_pad}, k), got "
                          f"{tuple(x.shape)}")
-    y = _launch("spmv", op, x)
+    _check_input(op, x)
+    if op.dims[1] > MAX_GRID_YZ or op.dims[2] > MAX_GRID_YZ:
+        raise ValueError(f"stencil kernel takes ny, nz ≤ {MAX_GRID_YZ}")
+    y = torch.empty_like(x)
+    _call(f"stencil_spmv_{_TYPES[x.dtype]}", op, x, y)
     stencil_spmv.launches += 1
     return y
 
@@ -211,7 +277,11 @@ def stencil_spmm(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"stencil SpMM kernel takes X of shape "
                          f"({op.n_rows_pad}, k), 1 ≤ k ≤ {MAX_COLS}, got "
                          f"{tuple(x.shape)}")
-    y = _launch("spmm", op, x, x.shape[1])
+    _check_input(op, x)
+    k = x.shape[1]
+    y = torch.empty_like(x)
+    plan = spmm_plan(op, k, x.element_size(), pointer_align(x, y))
+    _call(f"stencil_spmm_{_TYPES[x.dtype]}", op, x, y, k, plan=plan)
     stencil_spmm.launches += 1
     return y
 
