@@ -214,12 +214,12 @@ def counts(wrappers):
 
 
 def zero(wrappers):
-    """Set every count to 0, the stage counts of the polynomial wrappers
-    too."""
+    """Set every count to 0, the fused-launch counts of the polynomial
+    wrappers too."""
     for fn in wrappers.values():
         fn.launches = 0
-        if hasattr(fn, "stage_launches"):
-            fn.stage_launches = 0
+        if hasattr(fn, "kernel_launches"):
+            fn.kernel_launches = 0
 
 
 def run_marked(step, args, owner, attr, wrappers):
@@ -316,6 +316,7 @@ def main():
         "trilinos_tpu_torch.solvers.sstep_gmres")
     cheb_mod = importlib.import_module("trilinos_tpu_torch.precond.chebyshev")
     bdia_mod = importlib.import_module("trilinos_tpu_torch.ops.bdia_spmv")
+    dia_mod = importlib.import_module("trilinos_tpu_torch.ops.dia_spmv")
 
     cg_kernels = {"stencil_spmv": stencil_spmv, "dia_spmv": dia_spmv}
     block_kernels = {"stencil_spmm": stencil_spmm, "dia_spmm": dia_spmm,
@@ -411,7 +412,10 @@ def main():
         ("37x19x11 k=16, X 4 bytes past 16-byte alignment", odd, lap, NRHS,
          torch.float32, 1),
         ("37x19x11 radius 2 k=16", odd, wide, NRHS, torch.float32, 0),
-        ("37x19x11 radius 2 k=3 f64", odd, wide, 3, torch.float64, 0)]
+        ("37x19x11 radius 2 k=3 f64", odd, wide, 3, torch.float64, 0),
+        # few, long rows: a block of 256 threads would pass 64 along z
+        ("2x200x1 k=4 (block capped at 64 along z)", (2, 200, 1), lap, 4,
+         torch.float32, 0)]
     for i, (label, dims, st, k, dt, shift) in enumerate(mv_cases):
         op = StencilOp.create(dims, st)
         buf = randn(op.n_rows_pad * k + shift, dt, seed=40 + i)
@@ -437,7 +441,8 @@ def main():
                     n_rows=a.n_rows, n_cols=a.n_cols, nnz=a.nnz)
             for a in levels]
     # bf16 data, f32 x and sum: both versions multiply the same widened
-    # values and add in the same order, so f32's tolerance holds
+    # values and add in the same order, so f32's tolerance holds; the SpMM
+    # is bitwise its plain version (same diagonal order and rounding)
     for i, (a, ab) in enumerate(zip(levels, bf16), start=1):
         xl = randn(a.n_rows_pad, torch.float32, seed=19 + i)
         err["dia_spmv"] = max(err["dia_spmv"], check(
@@ -448,7 +453,31 @@ def main():
         for label, m in (("f32", a), ("bf16 data", ab)):
             err["dia_spmm"] = max(err["dia_spmm"], check(
                 f"dia SpMM level-{i} k={NRHS} {label}", dia_spmm(m, xk),
-                dia_spmv_plain(m, xk), TOL[torch.float32]))
+                dia_spmv_plain(m, xk), 0.0))
+    # the DIA SpMM at the edges of its plan, bitwise: k = 1, 3, 6 (4-, 4-
+    # and 8-byte vectors), 1024 (256 lanes a row), an X 4 bytes past 16-byte
+    # alignment (one column a thread), f64 (2 × f64 and one f64)
+    lv2, coarsest = levels[1], levels[-1]
+    lv2_f64 = dataclasses.replace(lv2, data=lv2.data.double())
+    dia_edges = [  # label, matrix, k, dtype, X offset in its buffer
+        ("level-2 k=1", lv2, 1, torch.float32, 0),
+        ("level-2 k=3", lv2, 3, torch.float32, 0),
+        ("level-2 k=6", lv2, 6, torch.float32, 0),
+        (f"level-{len(levels)} k=1024", coarsest, 1024, torch.float32, 0),
+        (f"level-1 k={NRHS}, X 4 bytes past 16-byte alignment", levels[0],
+         NRHS, torch.float32, 1),
+        ("level-2 k=16 bf16 data, X 4 bytes past 16-byte alignment",
+         bf16[1], NRHS, torch.float32, 1),
+        (f"level-2 k={NRHS} f64", lv2_f64, NRHS, torch.float64, 0),
+        ("level-2 k=6 f64, X 8 bytes past 16-byte alignment", lv2_f64, 6,
+         torch.float64, 1)]
+    for i, (label, m, k, dt, shift) in enumerate(dia_edges):
+        buf = randn(m.n_rows_pad * k + shift, dt, seed=60 + i)
+        xk = buf[shift:].view(m.n_rows_pad, k)
+        err["dia_spmm"] = max(err["dia_spmm"], check(
+            f"dia SpMM {label} (X pointer % 16 = {xk.data_ptr() % 16})",
+            dia_spmm(m, xk), dia_spmv_plain(m, xk), 0.0))
+        del buf, xk
     a1, a1_bf16 = levels[0], bf16[0]
     x1 = randn(a1.n_rows_pad, torch.float32, seed=20)
     check("dia level-1 bf16 data", dia_spmv(a1_bf16, x1),
@@ -487,10 +516,18 @@ def main():
     cheb3 = stencil_chebyshev_setup(fine, 3, lmax=ClassifiedStencil
                                     .from_constant(fine.offsets, fine.coeffs)
                                     .gershgorin())
-    mono4 = monomial_stages(4, 12.0)
+    cheb8 = stencil_chebyshev_setup(fine, 8, lmax=ClassifiedStencil
+                                    .from_constant(fine.offsets, fine.coeffs)
+                                    .gershgorin())
+    mono1, mono4 = monomial_stages(1, 12.0), monomial_stages(4, 12.0)
+    mono8 = monomial_stages(8, 12.0)
     newton4 = tuple((a, bt, g, 0.0) for a, bt, g in newton_basis_stages(
         [11.5, 6.0 + 2.5j, 6.0 - 2.5j, 0.8], 12.0))
+    newton8 = tuple((a, bt, g, 0.0) for a, bt, g in newton_basis_stages(
+        [11.5, 9.0 + 1.0j, 9.0 - 1.0j, 6.0, 4.0 + 2.0j, 4.0 - 2.0j, 1.5,
+         0.4], 12.0))
     poly_cases = [  # label, dims, n_pad, z bounds, dtype, stages, powers
+        # (a label naming radius 2 takes the radius-2 stencil)
         (f"{GRID} f32 Chebyshev s=3", DIMS, None, None, torch.float32,
          cheb3, False),
         (f"{GRID} f32 monomial s=4", DIMS, None, None, torch.float32, mono4,
@@ -508,10 +545,37 @@ def main():
         ("128^3 f64 Chebyshev", (128, 128, 128), None, None, torch.float64,
          cheb3, False),
         ("128^3 f64 monomial", (128, 128, 128), None, None, torch.float64,
-         mono4, True)]
+         mono4, True),
+        ("64^3 f32 monomial s=1", (64, 64, 64), None, None, torch.float32,
+         mono1, True),
+        ("64^3 f32 Chebyshev s=1", (64, 64, 64), None, None, torch.float32,
+         cheb3[:1], False),
+        ("64^3 f32 Chebyshev s=8", (64, 64, 64), None, None, torch.float32,
+         cheb8, False),
+        ("64^3 f32 z bounds (3, 60) Newton s=8", (64, 64, 64), None, (3, 60),
+         torch.float32, newton8, True),
+        ("37x19x11 radius 2 f32 Chebyshev s=3", odd, None, None,
+         torch.float32, cheb3, False),
+        ("37x19x11 radius 2 f32 pad rows (n_pad 8192) monomial", odd, 8192,
+         None, torch.float32, mono4, True),
+        ("10x6x5 f32 (smaller than one tile) Newton", (10, 6, 5), None, None,
+         torch.float32, newton4, True),
+        ("10x6x5 f64 (smaller than one tile) Chebyshev", (10, 6, 5), None,
+         None, torch.float64, cheb3, False),
+        ("37x19x11 radius 2 f64 monomial s=8 (split launches)", odd, None,
+         (2, 9), torch.float64, mono8, True),
+        ("37x19x11 radius 2 f64 Chebyshev s=8 (split launches)", odd, None,
+         None, torch.float64, cheb8, False)]
+    poly_mod = importlib.import_module("trilinos_tpu_torch.ops.stencil_poly")
     for i, (label, dims, npad, zb, dt, stages, powers) in enumerate(
             poly_cases):
-        op = StencilOp.create(dims, lap, n_rows_pad=npad)
+        st = wide if "radius 2" in label else lap
+        op = StencilOp.create(dims, st, n_rows_pad=npad)
+        plan = poly_mod.stencil_poly_plan(op, tuple(stages),
+                                          torch.finfo(dt).bits // 8)
+        if ("split" in label) != (len(plan.launches) > 1):
+            fail(f"stencil polynomial {label}: {len(plan.launches)} "
+                 "launches planned")
         x = randn(op.n_rows_pad, dt, seed=300 + i)
         name, kern, plain = (
             ("stencil_powers", stencil_powers_apply, stencil_powers_plain)
@@ -522,6 +586,14 @@ def main():
         err[name] = max(err[name], check(
             f"{name} {label}", y, plain(op, stages, x, z_bounds=zb), 0.0))
         del x, y
+    # the fused polynomial's geometry on the two paths: tile, z-chunk,
+    # rings and the redundant halo work the overlapped tiles cost
+    for label, stages in (("Chebyshev s=3", cheb3), ("monomial s=4", mono4)):
+        plan = poly_mod.stencil_poly_plan(fine, tuple(stages), 4)
+        log(f"stencil polynomial plan {GRID} f32 {label}: tile {plan.tile}, "
+            f"z-chunk {plan.zc}, grid {plan.grid}, launches "
+            f"{[(ln.count, ln.slots, ln.smem) for ln in plan.launches]}, "
+            f"xy halo work per output point and stage {plan.redundancy:.3f}")
     # one fused CG iteration from the same state: the five vectors bitwise
     # and scal to the tolerance; then five chained iterations, each side on
     # its own outputs; then a sixth from the plain chain's state on both
@@ -652,8 +724,19 @@ def main():
     log(f"block right-hand sides ({GRID} x {NRHS}): "
         f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    bres, bsolve_ms, b_launches, b_per, b_gaps = run_marked(
-        bstep, (bb, bstate), SaAmg, "apply_state", block_kernels)
+    # the DIA SpMM's launches by level (rows) in this solve, recorded at
+    # its launcher
+    dia_by_rows = collections.Counter()
+    dia_launch = dia_mod._launch
+
+    def dia_recorded(kind, a, x):
+        if kind == "spmm":
+            dia_by_rows[a.n_rows_pad] += 1
+        return dia_launch(kind, a, x)
+
+    with mock.patch.object(dia_mod, "_launch", dia_recorded):
+        bres, bsolve_ms, b_launches, b_per, b_gaps = run_marked(
+            bstep, (bb, bstate), SaAmg, "apply_state", block_kernels)
     bpeak = torch.cuda.max_memory_allocated() / 2**30
     steps = int(bres.iters)
     log(f"block path: converged {bres.converged.tolist()} block steps "
@@ -715,17 +798,21 @@ def main():
     cstep, (cb, cstate) = cheb_entry(amg=camg)
     cres, csolve_ms, c_launches, c_per, c_gaps = run_marked(
         cstep, (cb, cstate), SaAmg, "apply_state", cheb_kernels)
-    c_stages = stencil_poly_apply.stage_launches
+    c_fused = stencil_poly_apply.kernel_launches
     citers = int(cres.iters)
     c_true = true_residual(cres.x, cb)
     log(f"Chebyshev path: converged {bool(cres.converged)} iters {citers} "
         f"first solve {csolve_ms:.1f} ms launches {c_launches}; launches "
-        f"between preconditioner calls {c_gaps}; stencil_poly stage "
-        f"launches {c_stages}; true relative residual (plain operator, f64) "
+        f"between preconditioner calls {c_gaps}; stencil_poly kernel "
+        f"launches {c_fused}; true relative residual (plain operator, f64) "
         f"{c_true:.3e}")
     if not bool(cres.converged) or not c_true <= RTOL:
         fail(f"Chebyshev path: converged {bool(cres.converged)}, true "
              f"residual {c_true:.3e}")
+    # every polynomial apply is one fused launch
+    if c_fused != c_launches["stencil_poly"]:
+        fail(f"Chebyshev path: {c_fused} polynomial kernel launches for "
+             f"{c_launches['stencil_poly']} applies")
     # the fine level's 4 Jacobi sweeps become 2 polynomial applies (pre and
     # post); the coarse DIA levels smooth as on the Jacobi path
     if c_per != {"stencil_poly": 2, "stencil_spmv": 5,
@@ -755,7 +842,7 @@ def main():
     with mock.patch.object(sstep_mod, "norm2", recorded):
         sres, ssolve_ms, s_launches, s_per, s_gaps = run_marked(
             sstep, (sb,), sstep_mod, "cgs2_project_window", sstep_kernels)
-        s_stages = stencil_powers_apply.stage_launches
+        s_fused = stencil_powers_apply.kernel_launches
         k_norms, norms[:] = list(norms), []
         sref, splain_ms = plain_run(sstep, sb)
     s_true = true_residual(sres.x, sb)
@@ -763,8 +850,8 @@ def main():
     srel_n = max(abs(a - b) / b for a, b in zip(k_norms, norms))
     log(f"s-step path: iters {sres.iters} (s=4, m=32, 5 cycles) first solve "
         f"{ssolve_ms:.1f} ms launches {s_launches}; launches between block "
-        f"projections {s_gaps}; stencil_powers stage launches "
-        f"{s_stages}; residual norms (‖b‖, then β "
+        f"projections {s_gaps}; stencil_powers kernel launches "
+        f"{s_fused}; residual norms (‖b‖, then β "
         f"and the true ‖r‖ of each cycle) {k_norms}; true relative residual "
         f"(plain operator, f64) {s_true:.3e}")
     log(f"s-step plain reference: iters {sref.iters} solve {splain_ms:.1f} "
@@ -778,6 +865,9 @@ def main():
     for name, count in s_launches.items():
         if count == 0:
             fail(f"s-step path never launched {name}")
+    if s_fused != s_launches["stencil_powers"]:
+        fail(f"s-step path: {s_fused} matrix-powers kernel launches for "
+             f"{s_launches['stencil_powers']} applies")
     del sref
     swarm_ms = warm(sstep, sb)
 
@@ -1109,8 +1199,8 @@ def main():
     p_per = {"bdia_spmm": p_launches["bdia_spmm"] / PLANE_ITERS}
     per_step = {**f_per, **s_per, **c_per, **cg_per, **b_per, **e_per,
                 **p_per}
-    # stage kernels the polynomial wrappers launched on their own paths
-    stage_launches = {"stencil_poly": c_stages, "stencil_powers": s_stages}
+    # fused kernels the polynomial wrappers launched on their own paths
+    fused_launches = {"stencil_poly": c_fused, "stencil_powers": s_fused}
     kernels = []
     for r in rows:
         kernel_ms = time_ms(r["kernel"])
@@ -1132,8 +1222,8 @@ def main():
             plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=library_ms)
-        if r["name"] in stage_launches:
-            entry_["stage_launches"] = stage_launches[r["name"]]
+        if r["name"] in fused_launches:
+            entry_["kernel_launches"] = fused_launches[r["name"]]
         log(json.dumps(entry_))
         kernels.append(entry_)
     bf16_ms = time_ms(lambda: dia_spmv(a1_bf16, x1))
@@ -1142,6 +1232,18 @@ def main():
     bf16k_ms = time_ms(lambda: dia_spmm(a1_bf16, x1k))
     log(f"dia_spmm bf16 data at level 1, k={NRHS}: {bf16k_ms:.4f} ms, bound "
         f"{(nd * 2 + 2 * NRHS * 4) * n1 / HBM_BYTES_PER_MS:.4f} ms")
+    # the DIA SpMM at k = 16 on every level of the block path
+    for i, a in enumerate(levels, start=1):
+        xk = randn((a.n_rows_pad, NRHS), torch.float32, seed=80 + i)
+        csr_l = dia_as_csr(a)
+        nd_l = len(a.offsets)
+        log(f"dia SpMM level {i} ({a.n_rows_pad} rows x {nd_l} diags, "
+            f"k={NRHS}, f32): kernel "
+            f"{time_ms(lambda: dia_spmm(a, xk)):.4f} ms, bound "
+            f"{(nd_l + 2 * NRHS) * a.n_rows_pad * 4 / HBM_BYTES_PER_MS:.4f} "
+            f"ms, launches per block solve {dia_by_rows[a.n_rows_pad]}, "
+            f"sparse CSR @ {time_ms(lambda: csr_l @ xk):.4f} ms")
+        del xk, csr_l
 
     def bsr_call(a, x):
         """torch.sparse_bsr_tensor @ x, or None where the card's PyTorch

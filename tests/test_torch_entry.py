@@ -78,21 +78,21 @@ def test_entry_twin_matches_jax(dtype, max_diters, tol):
 
 def test_new_paths_launch_no_kernel_on_the_cpu():
     """The s-step and fused-CG paths at 16³ on the CPU: every wrapper runs
-    its plain version, so the kernels' counters stay 0, the stage counts of
+    its plain version, so the kernels' counters stay 0, the kernel counts of
     the polynomial wrappers too."""
     counters = (stencil_poly_apply, stencil_powers_apply, cg_fused_iteration,
                 stencil_spmv)
     for fn in counters:
         fn.launches = 0
-    stencil_poly_apply.stage_launches = 0
-    stencil_powers_apply.stage_launches = 0
+    stencil_poly_apply.kernel_launches = 0
+    stencil_powers_apply.kernel_launches = 0
     step, (b,) = sstep_entry(device="cpu")
     assert step(b).iters == 160
     step, (b,) = fused_cg_entry(device="cpu")
     assert bool(step(b).converged)
     assert [fn.launches for fn in counters] == [0, 0, 0, 0]
-    assert stencil_poly_apply.stage_launches == 0
-    assert stencil_powers_apply.stage_launches == 0
+    assert stencil_poly_apply.kernel_launches == 0
+    assert stencil_powers_apply.kernel_launches == 0
 
 
 def jax_elasticity_rhs(a, npad):

@@ -148,21 +148,35 @@ def test_error_paths():
 @pytest.mark.parametrize("powers", [False, True])
 def test_counters_count_applies_and_stage_launches(monkeypatch, powers):
     """Where the kernel launches (here its launcher stands in with the
-    plain version), each apply adds 1 to ``.launches`` and its number of
-    stages to ``.stage_launches``."""
+    plain version), each apply adds 1 to ``.launches`` and its plan's
+    fused launches to ``.kernel_launches``: one for every chain that fits
+    one launch (no longer one a stage), more where the plan splits it
+    (radius 2, s = 8, f64)."""
     top = StencilOp.create((8, 8, 4), ST7)
     x = torch.from_numpy(np.random.default_rng(11).standard_normal(
         top.n_rows_pad))
     fn = tp.stencil_powers_apply if powers else tp.stencil_poly_apply
     plain = tp.stencil_powers_plain if powers else tp.stencil_poly_plain
     monkeypatch.setattr(tp, "use_kernel", lambda t: True)
-    monkeypatch.setattr(tp, "_launch", lambda op, st, v, zb, all_outputs:
-                        (tp.stencil_powers_plain if all_outputs
-                         else tp.stencil_poly_plain)(op, st, v, zb))
+    monkeypatch.setattr(tp, "_launch", lambda op, st, v, zb, all_outputs,
+                        plan: (tp.stencil_powers_plain if all_outputs
+                               else tp.stencil_poly_plain)(op, st, v, zb))
     monkeypatch.setattr(fn, "launches", 0)
-    monkeypatch.setattr(fn, "stage_launches", 0)
+    monkeypatch.setattr(fn, "kernel_launches", 0)
     for stages in (STAGES["chebyshev"], tp.power_stages(2)):
         torch.testing.assert_close(fn(top, stages, x), plain(top, stages, x),
                                    rtol=0, atol=0)
     assert fn.launches == 2
-    assert fn.stage_launches == len(STAGES["chebyshev"]) + 2
+    assert fn.kernel_launches == 2
+    wide = StencilOp.create((8, 8, 4), ST7 + [((2, 0, 0), 0.5),
+                                              ((0, -2, 0), 0.25),
+                                              ((0, 0, 2), 0.125)])
+    x8 = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        wide.n_rows_pad))
+    torch.testing.assert_close(fn(wide, tp.power_stages(8), x8),
+                               plain(wide, tp.power_stages(8), x8),
+                               rtol=0, atol=0)
+    split = len(tp.stencil_poly_plan(wide, tp.power_stages(8), 8).launches)
+    assert split > 1
+    assert fn.launches == 3
+    assert fn.kernel_launches == 2 + split

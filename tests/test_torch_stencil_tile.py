@@ -1,20 +1,25 @@
-"""The host-side launch plans of the stencil SpMM and of the fused CG
-iteration's z-marching tile, checked on the CPU with numpy index
+"""The host-side launch plans of the stencil SpMM, the DIA SpMM and the
+fused CG iteration's z-marching tile, checked on the CPU with numpy index
 arithmetic only.
 
 For each geometry, column count, element size, pointer alignment and
-stencil radius: the SpMM's blocks and column lanes cover every grid point
-and column exactly once with aligned vectors; the fused iteration's tiles
-and z-chunks cover every grid point exactly once; each launch keeps the
-card's limits (≤ 1024 threads a block, ≤ 232,448 bytes of shared memory,
-gridDim.y and gridDim.z ≤ 65535). A numpy walk of the fused iteration's
+stencil radius: the SpMMs' blocks and column lanes cover every grid point
+(every row) and column exactly once with aligned vectors; the fused
+iteration's tiles and z-chunks cover every grid point exactly once; each
+launch keeps the card's limits (≤ 1024 threads a block, ≤ 1024 along
+blockDim.x and .y and ≤ 64 along .z, ≤ 232,448 bytes of shared memory,
+gridDim.y and gridDim.z ≤ 65535), grids of few, long rows included. A numpy walk of the fused iteration's
 ring of plane tiles (the slot arithmetic of ``csrc/cg_fused.cu``) gives
 the plain version's five vectors bit for bit. The wrappers hand a device
 tensor to the launcher with its plan, never to the plain version, and
 raise ValueError where no plan fits.
 """
+import contextlib
+import ctypes
+import importlib
 import pathlib
 import re
+import types
 
 import numpy as np
 import pytest
@@ -22,12 +27,16 @@ import torch
 
 from trilinos_tpu_torch.ops import cg_fused as cgf
 from trilinos_tpu_torch.ops import stencil_op as so
+from trilinos_tpu_torch.ops.dia_spmv import dia_spmm_plan
+from trilinos_tpu_torch.ops.formats import DiaMatrix
 from trilinos_tpu_torch.ops.cg_fused import (cg_fused_applicable,
                                              cg_fused_iteration,
                                              cg_fused_iteration_plain,
                                              cg_fused_plan)
 from trilinos_tpu_torch.ops.stencil_op import StencilOp, spmm_plan, stencil_spmm
 
+# the package attribute of this name is the function, not the module
+dia = importlib.import_module("trilinos_tpu_torch.ops.dia_spmv")
 TX, TY, DEPTH = cgf.TILE_X, cgf.TILE_Y, cgf.DEPTH
 CSRC = pathlib.Path(cgf.__file__).resolve().parent.parent / "csrc"
 
@@ -38,8 +47,10 @@ LAP3 = [((0, 0, 0), 6.0), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
 WIDE = LAP3 + [((-2, 0, 0), 0.25), ((0, 2, 0), -0.125), ((0, 0, -2), 0.5),
                ((2, -1, 1), 0.0625)]
 STENCILS = {1: LAP3, 2: WIDE}
+# the last three: few, long rows, where a block of about 256 threads
+# would pass 64 along blockDim.z
 GEOMETRIES = [(1, 1, 1), (37, 19, 11), (256, 256, 256), (40, 30, 1),
-              (64, 5, 20)]
+              (64, 5, 20), (2, 200, 1), (3, 100, 1), (1, 500, 1)]
 # (k, itemsize, pointer alignment in bytes)
 COLUMNS = [(1, 4, 16), (3, 4, 16), (4, 4, 16), (16, 4, 16), (16, 4, 4),
            (16, 8, 16), (1024, 4, 16), (1023, 4, 16), (6, 8, 8)]
@@ -56,8 +67,10 @@ def covered_once(starts, width, n):
     return np.array_equal(np.bincount(idx, minlength=n), np.ones(n, int))
 
 
-def check_limits(threads, grid, smem=0):
-    assert 1 <= threads <= 1024
+def check_limits(block, grid, smem=0):
+    assert 1 <= np.prod(block) <= 1024
+    assert 1 <= block[0] <= 1024 and 1 <= block[1] <= 1024
+    assert 1 <= block[2] <= 64
     assert smem <= 232448
     assert grid[1] <= 65535 and grid[2] <= 65535
 
@@ -70,7 +83,7 @@ def test_spmm_plan_covers_each_point_once(dims, cols, radius):
     op = StencilOp.create(dims, STENCILS[radius])
     plan = spmm_plan(op, k, itemsize, align)
     lanes, rx, ry = plan.block
-    check_limits(lanes * rx * ry, plan.grid)
+    check_limits(plan.block, plan.grid)
     nx, ny, nz = dims
     # whole vectors, aligned in the row and in memory, at most 16 bytes
     assert k % plan.vw == 0 and lanes * plan.vw == k
@@ -87,6 +100,36 @@ def test_spmm_plan_covers_each_point_once(dims, cols, radius):
     assert (plan.grid[0] - 1) * rx < nx and (plan.grid[1] - 1) * ry < ny
 
 
+@pytest.mark.parametrize("cols", COLUMNS, ids=lambda c: "k%d-b%d-a%d" % c)
+@pytest.mark.parametrize("n_pad", [1, 1000, 128 ** 3, 70_000_001])
+def test_dia_spmm_plan_covers_each_row_once(n_pad, cols):
+    """The DIA SpMM: whole aligned vectors of the widest width, lanes that
+    cover the k columns once, thread rows that cover the n_pad rows once,
+    every block with work, CUDA's limits."""
+    k, itemsize, align = cols
+    plan = dia_spmm_plan(n_pad, k, itemsize, align)
+    lanes, by, bz = plan.block
+    check_limits(plan.block, plan.grid)
+    assert plan.grid[1:] == (1, 1) and bz == 1
+    assert k % plan.vw == 0 and lanes * plan.vw == k
+    assert align % (plan.vw * itemsize) == 0 and plan.vw * itemsize <= 16
+    wider = 2 * plan.vw
+    assert (wider * itemsize > 16 or k % wider
+            or align % (wider * itemsize))
+    assert covered_once(np.arange(lanes) * plan.vw, plan.vw, k)
+    assert (plan.grid[0] - 1) * by < n_pad <= plan.grid[0] * by
+    if n_pad <= 10 ** 6:
+        assert covered_once(np.arange(plan.grid[0]) * by, by, n_pad)
+
+
+def test_dia_spmm_level_one_shape():
+    """Level 1 of the 256³ hierarchy at k = 16: 16-byte vectors, 4 lanes a
+    row, 64 rows a block."""
+    plan = dia_spmm_plan(128 ** 3, 16, 4)
+    assert plan.vw == 4 and plan.block == (4, 64, 1)
+    assert plan.grid == (128 ** 3 // 64, 1, 1)
+
+
 @pytest.mark.parametrize("radius", [1, 2])
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("dims", GEOMETRIES, ids=dims_id)
@@ -95,7 +138,7 @@ def test_cg_fused_plan_covers_each_point_once(dims, itemsize, radius):
         np.prod(dims)))
     assert cg_fused_applicable(op)
     plan = cg_fused_plan(op, itemsize)
-    check_limits(plan.threads, plan.grid, plan.smem)
+    check_limits(plan.block, plan.grid, plan.smem)
     off = np.abs(np.asarray([o for o, _ in STENCILS[radius]]))
     assert (plan.rx, plan.ry, plan.rz) == tuple(off.max(axis=0))
     nx, ny, nz = dims
@@ -128,7 +171,10 @@ def test_main_path_shapes():
     ("cg_fused.cu", "TT_DEPTH", cgf.DEPTH),
     ("stencil_spmv.cu", "TT_MAX_COLS", so.MAX_COLS),
     ("tt_common.cuh", "TT_MAX_TERMS", so.MAX_TERMS),
-], ids=["tile-x", "tile-y", "depth", "max-cols", "max-terms"])
+    ("dia_spmv.cu", "TT_MAX_COLS", dia.MAX_COLS),
+    ("dia_spmv.cu", "TT_MAX_DIAGS", dia.MAX_DIAGS),
+], ids=["tile-x", "tile-y", "depth", "max-cols", "max-terms", "dia-max-cols",
+        "dia-max-diags"])
 def test_plan_constants_match_the_source(source, name, value):
     """The plans use the kernels' own constants: each ``#define`` in the
     CUDA source equals the Python constant the plan reads."""
@@ -267,6 +313,39 @@ def test_spmm_wrapper_launches_with_the_plan(monkeypatch):
     assert calls == [("stencil_spmm_f64", (6,),
                       spmm_plan(op, 6, 8, so.pointer_align(x)))]
     assert stencil_spmm.launches == 1
+
+
+def test_dia_spmm_wrapper_launches_with_the_plan(monkeypatch):
+    """The DIA SpMM wrapper hands the C launcher the plan's fields (bf16
+    data and f32 X: the vectors are X's) and k, and counts the launch."""
+    seen = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            def call(data, x, y, n_pad, k, nd, offs, plan, stream):
+                fields = np.ctypeslib.as_array(
+                    ctypes.cast(plan, ctypes.POINTER(ctypes.c_int32)),
+                    shape=(7,)).copy()
+                seen.append((fn, n_pad, k, nd, fields))
+                return 0
+            return call
+
+    monkeypatch.setattr(dia, "use_kernel", lambda t: True)
+    monkeypatch.setattr(dia, "dia_spmv_plain", no_plain)
+    monkeypatch.setattr(dia._build, "load", lambda name, sigs: Lib())
+    monkeypatch.setattr(dia.torch.cuda, "device", lambda d: contextlib.
+                        nullcontext())
+    monkeypatch.setattr(dia.torch.cuda, "current_stream", lambda: types.
+                        SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(dia.dia_spmm, "launches", 0)
+    a = DiaMatrix(data=torch.zeros((3, 2048), dtype=torch.bfloat16),
+                  offsets=(-1, 0, 1), n_rows=2000, n_cols=2000, nnz=5998)
+    x = torch.zeros((2048, 12))
+    dia.dia_spmm(a, x)
+    plan = dia_spmm_plan(2048, 12, 4, so.pointer_align(x))
+    assert len(seen) == 1 and seen[0][:4] == ("dia_spmm_bf16f32", 2048, 12, 3)
+    assert np.array_equal(seen[0][4], plan.fields())
+    assert dia.dia_spmm.launches == 1
 
 
 def test_cg_fused_wrapper_launches_with_the_plan(monkeypatch):

@@ -64,12 +64,6 @@ __global__ void stencil_kernel(const T* __restrict__ x, T* __restrict__ y,
   y[gid] = acc;
 }
 
-// vw values of one row, moved as one load or store
-template <typename T, int VW>
-struct alignas(sizeof(T) * VW) Vec {
-  T v[VW];
-};
-
 // Block (k / VW, rx, ry): threadIdx.x is the column lane (VW columns
 // each), threadIdx.y the point along x, threadIdx.z along y.
 template <typename T, int VW>
@@ -139,7 +133,8 @@ static int launch(const void* x, void* y, long long n, long long n_pad, int nx,
 
 // The launch as ops/stencil_op.py spmm_plan gives it: an int32 array
 // [vw, blockDim.x, .y, .z, gridDim.x, .y, .z]. Checked here, so that a plan
-// that does not fit the shape or the pointers fails the launch.
+// that does not fit the shape, the pointers or CUDA's per-axis limits
+// (blockDim.x, .y <= 1024, .z <= 64) fails the launch.
 template <typename T>
 static bool mv_plan_ok(const int* p, const void* x, const void* y, int nx,
                        int ny, int nz, int k) {
@@ -149,7 +144,8 @@ static bool mv_plan_ok(const int* p, const void* x, const void* y, int nx,
   return (vw == 1 || vw == 2 || vw * (int)sizeof(T) == 16) &&
          vw * (int)sizeof(T) <= 16 && k % vw == 0 && p[1] * vw == k &&
          (uintptr_t)x % align == 0 && (uintptr_t)y % align == 0 &&
-         threads >= 1 && threads <= 1024 && p[5] <= 65535 && p[6] <= 65535 &&
+         threads >= 1 && threads <= 1024 && p[1] <= 1024 && p[2] <= 1024 &&
+         p[3] <= 64 && p[5] <= 65535 && p[6] <= 65535 &&
          (long long)p[4] * p[2] >= nx && (long long)p[5] * p[3] >= ny &&
          p[6] == nz;
 }

@@ -61,3 +61,10 @@ __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// VW values of one row of a row-major multivector, moved as one load or
+// store (16 bytes at most: 4 × f32, 2 × f64)
+template <typename T, int VW>
+struct alignas(sizeof(T) * VW) Vec {
+  T v[VW];
+};

@@ -14,12 +14,17 @@ scratch across steps the way the TPU ring kernel's grid steps did.
 The multivector apply (x of shape (n_pad, k), row-major) is the same
 file's ``dia_mv_kernel``: it replaces ``dia_spmm_ring`` at k > 1 and the
 window kernel ``dia_spmm_packed``. Bound by bytes, (nd·itemsize(data) +
-2·k·itemsize(x))·n_pad. One thread per (row, column), column fastest: the
-k threads of a row share one ``data[d, i]`` load and read k contiguous x.
+2·k·itemsize(x))·n_pad. A thread owns vw adjacent columns of one row and
+moves them as one load of X and one store of Y (16 bytes where k and the
+pointers allow it), reading ``data[d, i]`` once for its vw columns.
+:func:`dia_spmm_plan` picks vw and the launch on the host; the launcher
+checks it. Same diagonal order and rounding as the plain version, so the
+result is bitwise its.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -28,17 +33,54 @@ import torch
 from . import _build
 from .dispatch import use_kernel
 from .formats import DiaMatrix
+from .stencil_op import VEC_BYTES, pointer_align
 
 MAX_DIAGS = 512  # csrc/dia_spmv.cu TT_MAX_DIAGS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = [_P, _P, _P, ctypes.c_longlong, _I, _P, _P]
-_SIG_MV = _SIG[:4] + [_I] + _SIG[4:]
+_SIG_MV = _SIG[:4] + [_I] + _SIG[4:6] + [_P, _P]  # k; the plan, the stream
 _TYPES = {(torch.float32, torch.float32): "f32",
           (torch.float64, torch.float64): "f64",
           (torch.bfloat16, torch.float32): "bf16f32"}
 MAX_COLS = 1024  # csrc/dia_spmv.cu TT_MAX_COLS
+MV_THREADS = 256  # about this many threads in a SpMM block
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaSpmmPlan:
+    """Launch of the DIA SpMM kernel: ``vw`` columns of one row a thread,
+    a block of (k / vw, block[1], 1) threads over block[1] consecutive
+    rows, grid[0] blocks."""
+
+    vw: int
+    block: tuple[int, int, int]
+    grid: tuple[int, int, int]
+
+    def fields(self) -> np.ndarray:
+        """The int32 array the C launcher reads."""
+        return np.asarray([self.vw, *self.block, *self.grid], dtype=np.int32)
+
+
+def dia_spmm_plan(n_pad: int, k: int, itemsize: int,
+                  align: int = VEC_BYTES) -> DiaSpmmPlan:
+    """The SpMM kernel's launch for X of shape (n_pad, k) with elements of
+    ``itemsize`` bytes whose pointers (X's and Y's) are multiples of
+    ``align`` bytes: vw is the widest of 16, 8, 4 bytes (then one element)
+    that divides the row and the alignment, as the stencil SpMM's
+    :func:`~.stencil_op.spmm_plan` picks it, and a block takes about
+    MV_THREADS threads (at least one row of k / vw lanes, at most 1024
+    along each axis)."""
+    if not 1 <= k <= MAX_COLS:
+        raise ValueError(f"DIA SpMM takes 1 ≤ k ≤ {MAX_COLS}, got {k}")
+    vw = VEC_BYTES // itemsize
+    while vw > 1 and (k % vw or align % (vw * itemsize)):
+        vw //= 2
+    lanes = k // vw
+    by = max(1, MV_THREADS // lanes)
+    return DiaSpmmPlan(vw=vw, block=(lanes, by, 1),
+                       grid=(-(-n_pad // by), 1, 1))
 
 
 def _as_2d(a: DiaMatrix, x: torch.Tensor):
@@ -75,9 +117,9 @@ def _offsets(offsets: tuple[int, ...]) -> np.ndarray:
     return np.asarray(offsets, dtype=np.int32)
 
 
-def _launch(kind: str, a: DiaMatrix, x: torch.Tensor, *cols) -> torch.Tensor:
+def _launch(kind: str, a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     """Checks shared by both kernels, then one launch of
-    ``dia_<kind>_<types>``; ``cols`` is () or (k,)."""
+    ``dia_<kind>_<types>`` (the SpMM with k and its plan)."""
     types = _TYPES.get((a.dtype, x.dtype))
     if types is None:
         raise TypeError(f"DIA kernel takes f32/f32, f64/f64 or bf16/f32 "
@@ -95,11 +137,17 @@ def _launch(kind: str, a: DiaMatrix, x: torch.Tensor, *cols) -> torch.Tensor:
         for t in _TYPES.values()})
     offs = _offsets(a.offsets)
     y = torch.empty_like(x)
+    cols, plan = (), ()
+    if kind == "spmm":
+        k = x.shape[1]
+        fields = dia_spmm_plan(a.n_rows_pad, k, x.element_size(),
+                               pointer_align(x, y)).fields()
+        cols, plan = (k,), (fields.ctypes.data,)  # fields alive for the call
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"dia_{kind}_{types}")(
             a.data.data_ptr(), x.data_ptr(), y.data_ptr(), a.n_rows_pad,
-            *cols, len(a.offsets), offs.ctypes.data, stream)
+            *cols, len(a.offsets), offs.ctypes.data, *plan, stream)
     _build.check(lib, rc, f"dia_{kind}")
     return y
 
@@ -132,7 +180,7 @@ def dia_spmm(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"DIA SpMM kernel takes X of shape "
                          f"({a.n_rows_pad}, k), 1 ≤ k ≤ {MAX_COLS}, got "
                          f"{tuple(x.shape)}")
-    y = _launch("spmm", a, x, x.shape[1])
+    y = _launch("spmm", a, x)
     dia_spmm.launches += 1
     return y
 

@@ -43,6 +43,7 @@ from .formats import round_up
 
 MAX_TERMS = 32  # csrc/tt_common.cuh TT_MAX_TERMS
 MAX_GRID_YZ = 65535  # CUDA limit on gridDim.y / gridDim.z
+MAX_BLOCK_Z = 64  # CUDA's limit on blockDim.z (x and y take 1024)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,8 +174,9 @@ def spmm_plan(op: StencilOp, k: int, itemsize: int,
     ``itemsize`` bytes whose pointers (X's and Y's) are multiples of
     ``align`` bytes: vw is the widest of 16, 8, 4 bytes (then one element)
     that divides the row and the alignment, and a block takes about
-    MV_THREADS threads. Raises ValueError where the launch breaks a
-    limit."""
+    MV_THREADS threads, at most MAX_BLOCK_Z of them along z (a grid of
+    few, long rows gets fewer threads rather than an illegal block).
+    Raises ValueError where the launch breaks a limit."""
     if not 1 <= k <= MAX_COLS:
         raise ValueError(f"stencil SpMM takes 1 ≤ k ≤ {MAX_COLS}, got {k}")
     nx, ny, nz = op.dims
@@ -183,7 +185,7 @@ def spmm_plan(op: StencilOp, k: int, itemsize: int,
         vw //= 2
     lanes = k // vw
     rx = min(nx, max(1, MV_THREADS // lanes))
-    ry = min(ny, max(1, MV_THREADS // (lanes * rx)))
+    ry = min(ny, MAX_BLOCK_Z, max(1, MV_THREADS // (lanes * rx)))
     grid = (-(-nx // rx), -(-ny // ry), nz)
     if max(grid[1:]) > MAX_GRID_YZ:
         raise ValueError(f"stencil SpMM: grid {grid} passes gridDim.y, "
