@@ -26,10 +26,11 @@ Two run on Galeri 3-D Q1 elasticity through the BDIA kernel:
 
 Every hierarchy set-up must be served by the native SpGEMM. Each path
 is driven with the launch counts set to 0 just before it and read just
-after. It times each warm solve, times each kernel beside its
-bound, its plain version and one PyTorch library call where there is one,
-profiles one solve of each path (device time by kernel), and ends with one
-JSON line naming the device. Any failure exits non-zero; without a CUDA
+after. It times each warm solve, times each kernel (device time of
+CUDA-graph replays, and the host path of calls from Python) beside its
+bound, its plain version and one PyTorch library call where there is one
+(both by graph replay), profiles one solve of each path (device time by
+kernel), and ends with one JSON line naming the device. Any failure exits non-zero; without a CUDA
 device it exits non-zero before doing anything.
 """
 import collections
@@ -55,11 +56,15 @@ F32_FLOPS_PER_MS = 67e12 / 1e3  # H100 SXM float32 outside the tensor cores
 TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
 # chol_inv_small: kernel and plain version sum in different orders (the
 # plain version's matvecs go through cuBLAS) and take rsqrt differently, so
-# they agree to f32 rounding amplified by the factor's conditioning, not to
-# the bit. Gates: kernel vs plain, and the kernel's own residuals
-# ‖L·Lᵀ − g‖/‖g‖ (backward error of a Cholesky factor, a few eps) and
-# max|L⁻¹·L − I| (grows with cond(L), ≤ 10 on these panels).
-CHOL_TOL = {"vs_plain": 1e-4, "llt": 1e-5, "inv": 1e-4}
+# they agree to the type's rounding amplified by the factor's conditioning,
+# not to the bit. Gates, by dtype: kernel vs plain, and the kernel's own
+# residuals ‖L·Lᵀ − g‖/‖g‖ (backward error of a Cholesky factor, a few
+# eps) and max|L⁻¹·L − I| (grows with cond(L), ≤ 10 on these panels). The
+# f64 gates sit about 1000× above f64 rounding and below f32's, so a kernel
+# that computed in f32 for f64 input fails them (the f32-rounded control
+# in section 5 shows it does).
+CHOL_TOL = {torch.float32: {"vs_plain": 1e-4, "llt": 1e-5, "inv": 1e-4},
+            torch.float64: {"vs_plain": 1e-12, "llt": 1e-13, "inv": 1e-12}}
 # the kernel and plain block solves stop at rtol 1e-5 along slightly
 # different rounding, so their x agree to about the tolerance, not better
 BLOCK_X_TOL = 1e-4
@@ -107,9 +112,11 @@ def check(name, got, want, tol):
 
 def time_ms(fn):
     """Per-call median over SAMPLES CUDA-event pairs, each around BATCH
-    back-to-back calls, after three warm-up calls. The batch keeps the card
-    busy while the host enqueues, so launch overhead on the host does not
-    count as device time."""
+    back-to-back calls, after three warm-up calls: the host path. The
+    events bracket the host's enqueue of every call as well as the
+    device's work, so a call whose host side (Python, allocation, the
+    ctypes launch) outlasts its kernel reads the host's time, not the
+    card's."""
     for _ in range(3):
         fn()
     times = []
@@ -122,6 +129,36 @@ def time_ms(fn):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / BATCH)
+    return statistics.median(times)
+
+
+def graph_ms(fn):
+    """Device time per call: BATCH calls captured in one CUDA graph (after
+    three warm-up calls on a side stream), the per-call median over
+    SAMPLES timed replays. A replay enqueues the captured launches without
+    the host's work, so this reads the card, down to the gaps between
+    graph nodes (an empty kernel's replay time, ``empty_launch``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(BATCH):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(SAMPLES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / BATCH)
+    del graph
     return statistics.median(times)
 
 
@@ -251,8 +288,10 @@ def run_marked(step, args, owner, attr, wrappers):
     return res, ms, counts(wrappers), per, dict(gaps)
 
 
-def profile(label, fn):
-    """Device time by kernel and busy share of one run of ``fn``."""
+def profile(label, fn, focus=None):
+    """Device time by kernel and busy share of one run of ``fn``; with
+    ``focus``, also the summed device time and launches of the kernels
+    whose names contain it."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -269,6 +308,10 @@ def profile(label, fn):
     for key, (ms, count) in sorted(by_kernel.items(),
                                    key=lambda kv: -kv[1][0])[:14]:
         log(f"  {ms:8.3f} ms {count:5d} launches  {key[:100]}")
+    if focus:
+        hits = [v for key, v in by_kernel.items() if focus in key]
+        log(f"profiled {label}: {focus} {sum(ms for ms, _ in hits):.3f} ms "
+            f"of device time in {sum(n for _, n in hits)} launches")
 
 
 def main():
@@ -289,7 +332,8 @@ def main():
                                           fused_cg_entry, sstep_entry)
     from trilinos_tpu_torch.galeri import (elasticity2d, elasticity3d,
                                            laplace3d, rigid_body_modes)
-    from trilinos_tpu_torch.galeri.stencils import cross3d_stencil
+    from trilinos_tpu_torch.galeri.stencils import (cross3d_stencil,
+                                                    star2d_stencil)
     from trilinos_tpu_torch.ops import (BdiaMatrix, StencilOp,
                                         bdia_planes_plain, bdia_spmm,
                                         bdia_spmv, bdia_spmv_plain,
@@ -303,7 +347,8 @@ def main():
                                         stencil_powers_plain, stencil_spmm,
                                         stencil_spmv, stencil_spmv_plain)
     from trilinos_tpu_torch.ops import (_build, csr_to_bdia, matvec,
-                                        pack_planes, smalldense, spgemm)
+                                        pack_planes, smalldense, spgemm,
+                                        stencil_op)
     from trilinos_tpu_torch.ops.stencil_poly import (monomial_stages,
                                                      stencil_chebyshev_setup)
     from trilinos_tpu_torch.precond import BlockStructuredAmg, SaAmg
@@ -377,26 +422,84 @@ def main():
                     log(f"  ptxas {name}: {line.strip()}")
 
     # -- 3. stencil kernels against their plain versions ---------------------
+    # the single-vector SpMV, bitwise, at the paths' shapes and at every
+    # geometry of tests/test_torch_spmv_tile.py, f32 and f64, with pad
+    # rows (n_pad rounds n up to 1024); x 4 and 8 bytes past 16-byte
+    # alignment (vw 1 and 2); the generic instance on a 2-D 9-point star,
+    # a radius-2 stencil, 32 random terms and the cross in another order
     lap = cross3d_stencil(6.0, *([-1.0] * 6))
+    wide = lap + [((-2, 0, 0), 0.25), ((0, 2, 0), -0.125), ((0, 0, -2), 0.5),
+                  ((2, -1, 1), 0.0625)]
+    rng = np.random.default_rng(7)
+    span = [(dx, dy, dz) for dz in range(-2, 3) for dy in range(-2, 3)
+            for dx in range(-2, 3)]
+    rand32 = [(span[i], float(c)) for i, c in zip(
+        rng.choice(len(span), 32, replace=False), rng.standard_normal(32))]
     err = dict.fromkeys(all_kernels, 0.0)
-    cases = [(f"{GRID} f32", DIMS, None, torch.float32),
-             ("100^3 f32", (100, 100, 100), None, torch.float32),
-             ("16^3 f32 pad rows", (16, 16, 16), 4096 + 1024, torch.float32),
-             ("128^3 f64", (128, 128, 128), None, torch.float64)]
-    for i, (label, dims, npad, dt) in enumerate(cases):
-        op = StencilOp.create(dims, lap, n_rows_pad=npad)
-        x = randn(op.n_rows_pad, dt, seed=10 + i)
+    f32, f64 = torch.float32, torch.float64
+    spmv_cases = [  # label, dims, stencil, n_pad, dtype, x offset
+        (f"{GRID} f32", DIMS, lap, None, f32, 0),
+        (f"{GRID} f64", DIMS, lap, None, f64, 0),
+        (f"{GRID} f32, x 4 bytes past 16-byte alignment", DIMS, lap, None,
+         f32, 1),
+        ("100^3 f32", (100, 100, 100), lap, None, f32, 0),
+        ("16^3 f32 pad rows (n_pad 5120)", (16, 16, 16), lap, 4096 + 1024,
+         f32, 0),
+        ("128^3 f64", (128, 128, 128), lap, None, f64, 0),
+        ("64x8x20 f32, x 8 bytes past 16-byte alignment", (64, 8, 20), lap,
+         None, f32, 2),
+        ("64x8x20 f64, x 8 bytes past 16-byte alignment", (64, 8, 20), lap,
+         None, f64, 1)]
+    spmv_cases += [(f"{'x'.join(map(str, d))} {str(dt)[6:]}", d, lap, None,
+                    dt, 0)
+                   for d in ((1, 1, 1), (2, 200, 1), (3, 5, 7), (16, 16, 16),
+                             (255, 256, 3), (255, 64, 3), (257, 3, 2),
+                             (37, 19, 11), (64, 8, 20), (128, 128, 128),
+                             (1, 65535, 1), (1, 1, 65535))
+                   for dt in (f32, f64)]
+    spmv_cases += [(f"{label} {str(dt)[6:]} (generic instance)", d, st, None,
+                    dt, 0)
+                   for label, d, st in (
+                       ("31x13 2-D 9-point star", (31, 13), star2d_stencil(
+                           8.0, *([-1.0] * 8))),
+                       ("37x19x11 radius 2", (37, 19, 11), wide),
+                       ("17x11x9 32 random terms", (17, 11, 9), rand32),
+                       ("37x19x11 cross in reverse order", (37, 19, 11),
+                        lap[::-1]))
+                   for dt in (f32, f64)]
+    for i, (label, dims, st, npad, dt, shift) in enumerate(spmv_cases):
+        op = StencilOp.create(dims, st, n_rows_pad=npad)
+        buf = randn(op.n_rows_pad + shift, dt, seed=10 + i)
+        x = buf[shift:]
         y = stencil_spmv(op, x)
         torch.cuda.synchronize()
+        plan = stencil_op.spmv_plan(op, x.element_size(),
+                                    stencil_op.pointer_align(x, y))
         err["stencil_spmv"] = max(err["stencil_spmv"], check(
-            f"stencil {label}", y, stencil_spmv_plain(op, x), TOL[dt]))
+            f"stencil {label} (vw {plan.vw}, "
+            f"{'cross' if plan.cross else 'generic'} instance, z-chunk "
+            f"{plan.zc})", y, stencil_spmv_plain(op, x), 0.0))
+        del buf, x, y
+    # the launcher refuses a plan whose grid starts blocks past the last
+    # plane (csrc/spmv_plan.cuh, as the CPU test builds it)
+    op = StencilOp.create((37, 19, 11), lap)
+    x = randn(op.n_rows_pad, f32, seed=9)
+    plan = stencil_op.spmv_plan(op, 4, stencil_op.pointer_align(x))
+    oversize = dataclasses.replace(plan, grid=plan.grid[:2] + (
+        plan.grid[2] + 1,))
+    try:
+        stencil_op._call("stencil_spmv_f32", op, x, torch.empty_like(x),
+                         plan=oversize)
+    except RuntimeError as exc:
+        log(f"check stencil_spmv launcher refuses grid {oversize.grid} for "
+            f"37x19x11 (z-chunk {plan.zc}): {exc}")
+    else:
+        fail(f"stencil_spmv launcher took grid {oversize.grid} for 37x19x11")
     # the stencil SpMM, bitwise, at the block path's shape and at the edges
     # of its launch plan: a grid whose nx, ny are multiples of no block's
     # points (nor of the fused iteration's tile, nor nz of its z-chunk),
     # k = 1, 3, 4, pad rows, f64, an X whose data pointer is not 16-byte
     # aligned (the narrow-load instance), a radius-2 operator
-    wide = lap + [((-2, 0, 0), 0.25), ((0, 2, 0), -0.125), ((0, 0, -2), 0.5),
-                  ((2, -1, 1), 0.0625)]
     odd = (37, 19, 11)
     mv_cases = [  # label, dims, stencil, k, dtype, X offset in its buffer
         (f"{GRID} k={NRHS}", DIMS, lap, NRHS, torch.float32, 0),
@@ -483,31 +586,59 @@ def main():
     check("dia level-1 bf16 data", dia_spmv(a1_bf16, x1),
           dia_spmv_plain(a1_bf16, x1), TOL[torch.float32])
 
-    # -- 5. chol_inv_small for every k it takes ------------------------------
-    for k in range(1, smalldense.UNROLL_MAX + 1):
-        p = randn((4096, k), torch.float32, seed=200 + k)
-        for label, panel in (("random", p), ("scaled", p * torch.logspace(
-                -0.5, 0.5, k, device="cuda"))):
-            g = with_floor(panel.T @ panel)
-            l, linv = chol_inv_small(g)
-            lp, linvp = chol_inv_small_plain(g)
-            torch.cuda.synchronize()
-            worst = max(rel_err(l, lp)[0], rel_err(linv, linvp)[0])
-            err["chol_inv_small"] = max(err["chol_inv_small"],
-                                        rel_err(l, lp)[1],
-                                        rel_err(linv, linvp)[1])
-            llt = float(torch.linalg.norm(l @ l.T - g) / torch.linalg.norm(g))
-            inv = float((linv @ l - torch.eye(k, device="cuda")).abs().max())
-            if not (worst <= CHOL_TOL["vs_plain"] and llt <= CHOL_TOL["llt"]
-                    and inv <= CHOL_TOL["inv"]):
-                fail(f"chol_inv_small k={k} {label}: vs plain {worst:.2e}, "
-                     f"LLt {llt:.2e}, inv {inv:.2e} (tol {CHOL_TOL})")
-            if k in (1, 16, 32):
-                log(f"check chol_inv_small k={k} {label}: vs plain "
-                    f"{worst:.3e}, ‖LLᵀ−g‖/‖g‖ {llt:.3e}, "
-                    f"max|L⁻¹L−I| {inv:.3e} (tol {CHOL_TOL})")
-    log(f"check chol_inv_small k=1..32 (random and scaled panels): all "
-        f"within {CHOL_TOL}")
+    # -- 5. chol_inv_small for every k it takes, f32 and f64 -----------------
+    def chol_readings(g, l, linv, lp, linvp):
+        """(vs plain, ‖LLᵀ − g‖/‖g‖, max|L⁻¹L − I|), all in g's type."""
+        vs = max(rel_err(l, lp)[0], rel_err(linv, linvp)[0])
+        llt = float(torch.linalg.norm(l @ l.T - g) / torch.linalg.norm(g))
+        inv = float((linv @ l - torch.eye(g.shape[0], device="cuda",
+                                          dtype=g.dtype)).abs().max())
+        return vs, llt, inv
+
+    def within(readings, tol):
+        return all(r <= tol[key] for r, key in zip(
+            readings, ("vs_plain", "llt", "inv")))
+
+    for dt in (torch.float32, torch.float64):
+        tol = CHOL_TOL[dt]
+        worst = (0.0, 0.0, 0.0)
+        for k in range(1, smalldense.UNROLL_MAX + 1):
+            p = randn((4096, k), dt, seed=200 + k)
+            for label, panel in (("random", p), ("scaled", p * torch.logspace(
+                    -0.5, 0.5, k, device="cuda", dtype=dt))):
+                g = with_floor(panel.T @ panel)
+                l, linv = chol_inv_small(g)
+                lp, linvp = chol_inv_small_plain(g)
+                torch.cuda.synchronize()
+                err["chol_inv_small"] = max(err["chol_inv_small"],
+                                            rel_err(l, lp)[1],
+                                            rel_err(linv, linvp)[1])
+                got = chol_readings(g, l, linv, lp, linvp)
+                worst = tuple(map(max, worst, got))
+                if not within(got, tol):
+                    fail(f"chol_inv_small {dt} k={k} {label}: vs plain "
+                         f"{got[0]:.2e}, LLt {got[1]:.2e}, inv {got[2]:.2e} "
+                         f"(tol {tol})")
+                if k in (1, 16, 32):
+                    log(f"check chol_inv_small {str(dt)[6:]} k={k} {label}: "
+                        f"vs plain {got[0]:.3e}, ‖LLᵀ−g‖/‖g‖ {got[1]:.3e}, "
+                        f"max|L⁻¹L−I| {got[2]:.3e} (tol {tol})")
+                if dt == torch.float64 and k in (16, 32) and label == "random":
+                    # the control: the f32 kernel on g rounded to f32, read
+                    # in f64 as the f64 kernel is; the f64 gates must
+                    # refuse it
+                    l32, linv32 = chol_inv_small(g.float())
+                    ctl = chol_readings(g, l32.double(), linv32.double(), lp,
+                                        linvp)
+                    log(f"control chol_inv_small f32 kernel on f64 g, k={k}: "
+                        f"vs plain {ctl[0]:.3e}, ‖LLᵀ−g‖/‖g‖ {ctl[1]:.3e}, "
+                        f"max|L⁻¹L−I| {ctl[2]:.3e} (f64 tol {tol})")
+                    if within(ctl, tol):
+                        fail(f"chol_inv_small f64 gates {tol} pass an f32 "
+                             f"computation at k={k}")
+        log(f"check chol_inv_small k=1..32 {str(dt)[6:]} (random and scaled "
+            f"panels): worst vs plain {worst[0]:.3e}, ‖LLᵀ−g‖/‖g‖ "
+            f"{worst[1]:.3e}, max|L⁻¹L−I| {worst[2]:.3e}, all within {tol}")
 
     # -- 5b. stencil polynomial and fused CG iteration kernels ---------------
     # the Chebyshev AMG smoother's stages (degree 3, Gershgorin λmax, as
@@ -1201,11 +1332,29 @@ def main():
                 **p_per}
     # fused kernels the polynomial wrappers launched on their own paths
     fused_launches = {"stencil_poly": c_fused, "stencil_powers": s_fused}
+    # the empty kernel and chol_inv_small at the block path's k and at 32:
+    # device time (graph replays) and host path
+    empty_ms = graph_ms(lambda: smalldense.empty_launch(x0.device))
+    empty_host_ms = time_ms(lambda: smalldense.empty_launch(x0.device))
+    p32 = randn((4096, 32), torch.float32, seed=35)
+    g32 = with_floor(p32.T @ p32)
+    chol32_ms = graph_ms(lambda: chol_inv_small(g32))
+    chol32_host_ms = time_ms(lambda: chol_inv_small(g32))
+    log(f"empty kernel (launch floor for chol_inv_small): {empty_ms:.4f} ms "
+        f"graph replay, {empty_host_ms:.4f} ms host path; chol_inv_small "
+        f"k=32 f32: {chol32_ms:.4f} ms graph replay, {chol32_host_ms:.4f} "
+        "ms host path")
+    log(f"stencil_spmv plan {GRID} f32: "
+        f"{stencil_op.spmv_plan(fine, 4, stencil_op.pointer_align(x0))}")
     kernels = []
     for r in rows:
-        kernel_ms = time_ms(r["kernel"])
-        plain_ms = time_ms(r["plain"])
-        library_ms = time_ms(r["library"]) if r["library"] else None
+        # ms, plain_ms, library_ms: device time, BATCH calls replayed from
+        # one CUDA graph; host_path_ms: CUDA events around BATCH calls of
+        # the kernel's wrapper from Python
+        kernel_ms = graph_ms(r["kernel"])
+        host_ms = time_ms(r["kernel"])
+        plain_ms = graph_ms(r["plain"])
+        library_ms = graph_ms(r["library"]) if r["library"] else None
         by_bytes = r["bytes"] / HBM_BYTES_PER_MS
         by_ops = r["flops"] / F32_FLOPS_PER_MS
         pkg = "smalldense.py" if r["name"] == "chol_inv_small" else None
@@ -1219,11 +1368,15 @@ def main():
             shape=r["shape"], launches=launches[r["name"]],
             launches_per_step=per_step[r["name"]],
             max_abs_err=err[r["name"]], ms=kernel_ms, kernel_ms=kernel_ms,
-            plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+            host_path_ms=host_ms, plain_ms=plain_ms,
+            bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=library_ms)
         if r["name"] in fused_launches:
             entry_["kernel_launches"] = fused_launches[r["name"]]
+        if r["name"] == "chol_inv_small":
+            entry_.update(empty_ms=empty_ms, empty_host_path_ms=empty_host_ms,
+                          k32_ms=chol32_ms, k32_host_path_ms=chol32_host_ms)
         log(json.dumps(entry_))
         kernels.append(entry_)
     bf16_ms = time_ms(lambda: dia_spmv(a1_bf16, x1))
@@ -1318,8 +1471,6 @@ def main():
             mono4, True)), ("cg_fused iteration", unfused_cg)):
         log(f"unfused sequence for {label} at {GRID} f32 (stencil_spmv "
             f"kernel + plain vector ops): {time_ms(fn):.4f} ms")
-    empty_ms = time_ms(lambda: smalldense.empty_launch(x0.device))
-    log(f"empty kernel (launch floor for chol_inv_small): {empty_ms:.4f} ms")
     log(f"CG solve: {warm_ms:.2f} ms wall, {warm_ms / max(iters, 1):.3f} "
         f"ms/iter over {iters} iterations (first solve {solve_ms:.1f} ms; "
         f"plain versions {plain_solve_ms:.1f} ms)")
@@ -1354,9 +1505,10 @@ def main():
 
     # -- 9. one solve of each path under the profiler: device time by kernel
     # (last, so that it cannot disturb the timings above)
-    profile("CG solve", lambda: step(b, state))
+    profile("CG solve", lambda: step(b, state), focus="stencil_kernel")
     profile("block solve", lambda: bstep(bb, bstate))
-    profile("Chebyshev AMG-PCG solve", lambda: cstep(cb, cstate))
+    profile("Chebyshev AMG-PCG solve", lambda: cstep(cb, cstate),
+            focus="stencil_kernel")
     profile("s-step GMRES solve", lambda: sstep(sb))
     profile("fused CG solve", lambda: fstep(fb))
     profile("elasticity AMG-PCG solve", lambda: estep(eb, est))

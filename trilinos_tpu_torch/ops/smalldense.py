@@ -9,10 +9,11 @@ Kernel: ``csrc/chol_inv_small.cu`` replaces the TPU kernel
 ``chol_inv_small`` (``_chol_inv_kernel``): (L, L⁻¹) in one launch, where
 the plain version (:func:`chol_inv_small_plain`, the unrolled
 :func:`chol_small` + :func:`tri_inv_small` pair) is about 2k dependent
-small operations. Its work is a few kilobytes and a few thousand flops,
-so the launch floor sets its time. The plain version's matvecs sum in the
-BLAS's order, so kernel and plain version agree to a tolerance, not to the
-bit.
+small operations. Its work is a few kilobytes and a few thousand flops:
+one warp holds g's rows in registers and broadcasts by shuffle, so its
+device time is a launch plus a chain of one multiply-add, two shuffles and
+an rsqrt a column. The plain version's matvecs sum in the BLAS's order, so
+kernel and plain version agree to a tolerance, not to the bit.
 
 For k > ``UNROLL_MAX`` both functions use ``torch.linalg.cholesky`` and
 ``torch.linalg.solve_triangular`` on every device, as the JAX package uses

@@ -10,10 +10,15 @@ Kernel: ``csrc/stencil_spmv.cu`` replaces the TPU kernels
 (``_dma_kernel``). It reads x and writes y once each, so on an H100 it is
 bound by bytes: 2·n·itemsize over 3.35 TB/s (≈ 0.040 ms for 256³ f32).
 The TPU's plane-mask trick existed because the TPU's vector unit was the
-bottleneck; here one thread per grid point takes ix, iy, iz straight from
-a 3-D launch grid (no integer division) and reads its neighbours through
-L1/L2. Terms are summed in offset order without fused multiply-add, so
-the kernel matches :func:`stencil_spmv_plain` to the last bit.
+bottleneck; here a thread owns vw consecutive points along x (16 bytes
+where nx and the pointers allow it), takes its x±1 terms from its warp
+neighbours by shuffle and, for Galeri's 7-point cross, marches a z-chunk
+keeping planes z − 1, z, z + 1 in registers (out-of-range terms add a
+selected +0). Other stencils take a generic instance, one point a thread
+and one plane a block. :func:`spmv_plan` picks the instance and the
+launch on the host; the launcher checks it (``csrc/spmv_plan.cuh``).
+Terms are summed in offset order without fused multiply-add, so the
+kernel matches :func:`stencil_spmv_plain` to the last bit.
 
 The multivector apply (X of shape (n_pad, k), row-major, the JAX
 package's public layout) is the same file's ``stencil_mv_kernel``; it
@@ -144,13 +149,75 @@ def stencil_spmv_plain(op: StencilOp, x: torch.Tensor,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# (x, y, n, n_pad, nx, ny, nz, n_terms, dx, dy, dz, lin, coeff, plan, stream)
 _SIG = [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _I, _P, _P,
-        _P, _P, _P, _P]
-_SIG_MV = _SIG[:7] + [_I] + _SIG[7:13] + [_P, _P]  # k, then the plan
+        _P, _P, _P, _P, _P]
+_SIG_MV = _SIG[:7] + [_I] + _SIG[7:]  # k after nz
 _TYPES = {torch.float32: "f32", torch.float64: "f64"}
 MAX_COLS = 1024  # csrc/stencil_spmv.cu TT_MAX_COLS
 VEC_BYTES = 16  # the widest load or store of one thread
 MV_THREADS = 256  # about this many threads in a SpMM block
+SPMV_THREADS = 256  # csrc/spmv_plan.cuh TT_SPMV_THREADS
+SPMV_ROW = 64  # csrc/spmv_plan.cuh TT_SPMV_ROW: threads along x, at most
+SPMV_ZC = 32  # csrc/spmv_plan.cuh TT_SPMV_ZC: planes a block marches, at most
+SPMV_MIN_BLOCKS = 4096  # the z-chunk halves until the launch has this many
+# Galeri's 7-point cross in its own term order (galeri/stencils.py
+# cross3d_stencil): the kernel's compile-time instance
+CROSS_OFFSETS = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
+                 (0, 0, -1), (0, 0, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmvPlan:
+    """Launch of the single-vector kernel: ``vw`` points along x a thread;
+    ``cross`` for the 7-point cross's z-marching instance, else the
+    generic instance (one point a thread); a block of (bx, by, 1) threads
+    over bx·vw × by points of a plane; each block marches ``zc`` planes."""
+
+    vw: int
+    cross: bool
+    block: tuple[int, int, int]
+    grid: tuple[int, int, int]
+    zc: int
+
+    def fields(self) -> np.ndarray:
+        """The int32 array the C launcher reads."""
+        return np.asarray([self.vw, self.cross, *self.block, *self.grid,
+                           self.zc], dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def spmv_plan(op: StencilOp, itemsize: int,
+              align: int = VEC_BYTES) -> SpmvPlan:
+    """The single-vector kernel's launch for elements of ``itemsize``
+    bytes whose pointers (x's and y's) are multiples of ``align`` bytes.
+    Galeri's 7-point cross: vw is the widest of 16, 8, 4 bytes (then one
+    element) that divides nx and the alignment, and a block marches a
+    z-chunk of SPMV_ZC planes, halved until the launch has SPMV_MIN_BLOCKS
+    blocks (or one plane a block). Any other stencil: one point a thread,
+    one plane a block. A block takes at most SPMV_THREADS threads,
+    SPMV_ROW along x; the grid is the one that covers the points. Raises
+    ValueError where the launch breaks a limit."""
+    nx, ny, nz = op.dims
+    n_terms = len(op.offsets)
+    if n_terms > MAX_TERMS:
+        raise ValueError(f"stencil kernel takes ≤ {MAX_TERMS} terms")
+    cross = tuple(op.offsets) == CROSS_OFFSETS
+    vw, zc = 1, 1
+    if cross:
+        vw, zc = VEC_BYTES // itemsize, SPMV_ZC
+        while vw > 1 and (nx % vw or align % (vw * itemsize)):
+            vw //= 2
+    bx = min(nx // vw, SPMV_ROW)
+    by = min(ny, SPMV_THREADS // bx)
+    gx, gy = -(-nx // (bx * vw)), -(-ny // by)
+    while zc > 1 and gx * gy * -(-nz // zc) < SPMV_MIN_BLOCKS:
+        zc //= 2
+    grid = (gx, gy, -(-nz // zc))
+    if max(grid[1:]) > MAX_GRID_YZ:
+        raise ValueError(f"stencil kernel: grid {grid} passes gridDim.y, "
+                         f"gridDim.z ≤ {MAX_GRID_YZ}")
+    return SpmvPlan(vw=vw, cross=cross, block=(bx, by, 1), grid=grid, zc=zc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,20 +287,19 @@ def _library():
 
 
 def _call(fn: str, op: StencilOp, x: torch.Tensor, y: torch.Tensor, *extra,
-          plan: SpmmPlan | None = None) -> None:
+          plan: SpmvPlan | SpmmPlan) -> None:
     """One launch of the C entry ``fn`` on x's stream: (x, y, n, n_pad,
-    nx, ny, nz, *extra, the terms[, plan], stream)."""
+    nx, ny, nz, *extra, the terms, plan, stream)."""
     lib = _library()
     dx, dy, dz, lin, c = _terms(op)
-    fields = None if plan is None else plan.fields()  # alive for the call
-    plan_args = () if fields is None else (fields.ctypes.data,)
+    fields = plan.fields()  # alive for the call
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn)(
             x.data_ptr(), y.data_ptr(), op.n_rows, op.n_rows_pad, *op.dims,
             *extra, len(op.offsets), dx.ctypes.data, dy.ctypes.data,
-            dz.ctypes.data, lin.ctypes.data, c.ctypes.data, *plan_args,
-            stream)
+            dz.ctypes.data, lin.ctypes.data, c.ctypes.data,
+            fields.ctypes.data, stream)
     _build.check(lib, rc, fn)
 
 
@@ -263,7 +329,8 @@ def stencil_spmv(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
     if op.dims[1] > MAX_GRID_YZ or op.dims[2] > MAX_GRID_YZ:
         raise ValueError(f"stencil kernel takes ny, nz ≤ {MAX_GRID_YZ}")
     y = torch.empty_like(x)
-    _call(f"stencil_spmv_{_TYPES[x.dtype]}", op, x, y)
+    plan = spmv_plan(op, x.element_size(), pointer_align(x, y))
+    _call(f"stencil_spmv_{_TYPES[x.dtype]}", op, x, y, plan=plan)
     stencil_spmv.launches += 1
     return y
 
