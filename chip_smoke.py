@@ -4,9 +4,9 @@
 
 Builds the hand-written CUDA kernels from ``trilinos_tpu_torch/csrc/``
 and the native host SpGEMM, holds each kernel against its plain PyTorch
-version on the card at every shape the paths give it, and drives seven
+version on the card at every shape the paths give it, and drives ten
 paths, each once through the kernels and once through the plain versions.
-Five run on the 256³ Laplace3D stencil:
+Seven run on the 256³ Laplace3D stencil:
 
 * structured-AMG-preconditioned CG (``entry``) and AMG-preconditioned
   block GMRES, nrhs = 16, CGS2 + CholQR2 (``block_entry``), on one
@@ -14,7 +14,10 @@ Five run on the 256³ Laplace3D stencil:
 * AMG-PCG with the Chebyshev smoother (``cheb_entry``) on a second
   hierarchy;
 * s-step GMRES with the matrix-powers basis (``sstep_entry``);
-* fused-iteration CG (``fused_cg_entry``).
+* fused-iteration CG (``fused_cg_entry``);
+* GMRES(30) with CGS2 at a fixed 120 iterations (``gmres_entry``, the JAX
+  bench's ``bench_gmres`` at this grid), with an f32 and then a bf16
+  basis, and AMG-preconditioned GMRES(30) on the CG path's hierarchy.
 
 Two run on Galeri 3-D Q1 elasticity through the BDIA kernel:
 
@@ -23,6 +26,11 @@ Two run on Galeri 3-D Q1 elasticity through the BDIA kernel:
   BdiaMatrix (b = 3, then b = 6);
 * CG in plane layout (``bdia_cg_entry``) on 64×64×48 nodes, 400
   iterations.
+
+BASELINE config 2 (``bsr_gmres_entry``: Laplace3D 64³ stored as BSR with
+b = 4, Relaxation, pseudo-block GMRES(30) on 4 right-hand sides, f64) runs
+no hand-written kernel; it is gated on every column's true residual, and
+``fgmres``, ``gmres_single_reduce`` and ``gmres_pipeline`` run its column 0.
 
 Every hierarchy set-up must be served by the native SpGEMM. Each path
 is driven with the launch counts set to 0 just before it and read just
@@ -85,6 +93,10 @@ BDIA2D_DIMS = (1024, 512)  # the JAX bench's bare BDIA apply, b = 2
 BDIA_X_TOL = 1e-4  # kernel and plain elasticity AMG-PCG stop at rtol 1e-5
 PLANE_X_TOL = 1e-5  # the first PLANE_CHECK_ITERS plane-CG iterations
 PLANE_CHECK_ITERS = 20
+GMRES_ITERS = 120  # fixed-work GMRES(30) at rtol 0: four cycles
+GMRES_BF16_X_TOL = 1e-4  # kernel and plain runs with a bf16 basis
+CONFIG2_DIMS = (64, 64, 64)  # BASELINE config 2 at its stated size
+CONFIG2_RTOL = 1e-7  # its true-residual gate, every column
 BATCH, SAMPLES = 10, 25
 
 
@@ -328,8 +340,10 @@ def main():
 
     from trilinos_tpu_torch import native
     from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
-                                          cheb_entry, elasticity_entry, entry,
-                                          fused_cg_entry, sstep_entry)
+                                          bsr_gmres_entry, cheb_entry,
+                                          elasticity_entry, entry,
+                                          fused_cg_entry, gmres_entry,
+                                          sstep_entry)
     from trilinos_tpu_torch.galeri import (elasticity2d, elasticity3d,
                                            laplace3d, rigid_body_modes)
     from trilinos_tpu_torch.galeri.stencils import (cross3d_stencil,
@@ -1189,6 +1203,127 @@ def main():
              f"{PLANE_X_TOL:.0e}")
     del kchk, rchk
 
+    # -- 7g. GMRES(30) with CGS2, fixed work (rtol 0): f32 and bf16 basis ----
+    gmres_mod = importlib.import_module("trilinos_tpu_torch.solvers.gmres")
+    gmres_kernels = {"stencil_spmv": stencil_spmv}
+    gmres_runs = {}
+    for label, bdt, xtol in (("f32 basis", None, TOL[torch.float32]),
+                             ("bf16 basis", torch.bfloat16,
+                              GMRES_BF16_X_TOL)):
+        gstep, gargs = gmres_entry(dims=DIMS, device="cuda", rtol=0.0,
+                                   maxiter=GMRES_ITERS, basis_dtype=bdt)
+        # the solve's own peak: above what the earlier paths keep allocated
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        gres, gsolve_ms, g_launches, g_per, g_gaps = run_marked(
+            gstep, gargs, gmres_mod, "cgs2_project_rows", gmres_kernels)
+        gpeak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        # one residual before the first cycle and one after each cycle
+        want = gres.iters + -(-gres.iters // 30) + 1
+        g_true = true_residual(gres.x, gargs[0])
+        log(f"GMRES(30) {GRID} f32, {label}, rtol 0: iters {gres.iters} "
+            f"first solve {gsolve_ms:.1f} ms launches {g_launches} "
+            f"(expected {want}); launches between projections {g_gaps}; "
+            f"peak memory above the {held / 2**30:.2f} GiB held before "
+            f"{gpeak:.2f} GiB; true relative residual (plain "
+            f"operator, f64) {g_true:.3e}")
+        if gres.iters != GMRES_ITERS or g_launches["stencil_spmv"] != want:
+            fail(f"GMRES {label}: {gres.iters} iterations, launches "
+                 f"{g_launches}")
+        gref, gplain_ms = plain_run(gstep, *gargs)
+        grel_x, _ = rel_err(gres.x, gref.x)
+        log(f"GMRES {label} plain reference: iters {gref.iters} solve "
+            f"{gplain_ms:.1f} ms; max|Δx|/max|x| = {grel_x:.3e} (tol "
+            f"{xtol:.0e})")
+        if gref.iters != gres.iters or not grel_x <= xtol:
+            fail(f"GMRES {label}: kernel and plain runs differ: iters "
+                 f"{gres.iters} vs {gref.iters}, x {grel_x:.3e}")
+        del gref, gres
+        gmres_runs[label] = dict(
+            step=gstep, args=gargs, first=gsolve_ms, plain=gplain_ms,
+            warm=warm(gstep, *gargs), peak=gpeak, launches=g_launches,
+            per=g_per)
+
+    # -- 7h. AMG-preconditioned GMRES(30) on the CG path's hierarchy --------
+    astep, (ab, ast) = gmres_entry(amg=amg)
+    ares, asolve_ms, a_launches, a_per, a_gaps = run_marked(
+        astep, (ab, ast), SaAmg, "apply_state", cg_kernels)
+    aiters = int(ares.iters)
+    a_true = true_residual(ares.x, ab)
+    log(f"AMG-GMRES(30) path {GRID} f32, rtol {RTOL}: converged "
+        f"{bool(ares.converged)} iters {aiters} first solve {asolve_ms:.1f} ms "
+        f"launches {a_launches}; launches between preconditioner calls "
+        f"{a_gaps}; true relative residual (plain operator, f64) "
+        f"{a_true:.3e}")
+    if not bool(ares.converged) or not a_true <= RTOL:
+        fail(f"AMG-GMRES: converged {bool(ares.converged)}, true residual "
+             f"{a_true:.3e}")
+    for name, count in a_launches.items():
+        if count == 0:
+            fail(f"AMG-GMRES path never launched {name}")
+    aref, aplain_ms = plain_run(astep, ab, ast)
+    arel_x, _ = rel_err(ares.x, aref.x)
+    log(f"AMG-GMRES plain reference: converged {bool(aref.converged)} iters "
+        f"{int(aref.iters)} solve {aplain_ms:.1f} ms; max|Δx|/max|x| = "
+        f"{arel_x:.3e}")
+    if abs(int(aref.iters) - aiters) > 1:
+        fail(f"AMG-GMRES iteration counts {aiters} vs {int(aref.iters)}")
+    del aref, ares
+    awarm_ms = warm(astep, ab, ast)
+
+    # -- 7i. BASELINE config 2 at its stated size, and the GMRES variants ---
+    grid2c = "x".join(map(str, CONFIG2_DIMS))
+    t0 = time.perf_counter()
+    c2step, (c2b,) = bsr_gmres_entry(dims=CONFIG2_DIMS, device="cuda",
+                                     history=True)
+    torch.cuda.synchronize()
+    c2_setup_s = time.perf_counter() - t0
+    c2csr = csr_f64(laplace3d(*CONFIG2_DIMS))
+    zero(all_kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c2res = c2step(c2b)
+    torch.cuda.synchronize()
+    c2solve_ms = (time.perf_counter() - t0) * 1e3
+    c2_launches = {k: v for k, v in counts(all_kernels).items() if v}
+    hist = c2res.history.cpu().numpy()
+    col_iters = [int(np.flatnonzero(np.isfinite(hist[:, c]))[-1])
+                 for c in range(hist.shape[1])]
+    c2_true = [host_residual(c2csr, c2res.x[:, c], c2b[:, c])
+               for c in range(c2b.shape[1])]
+    log(f"BASELINE config 2 (Laplace3D {grid2c} BSR b=4, Relaxation, "
+        f"GMRES(30), nrhs {c2b.shape[1]}, f64, rtol 1e-8): set-up "
+        f"{c2_setup_s:.2f} s; converged {c2res.converged.tolist()} iters "
+        f"per column {col_iters} (max {c2res.iters}); first solve "
+        f"{c2solve_ms:.1f} ms; kernel launches {c2_launches or 'none'}; true "
+        f"relative residuals (host CSR, f64) "
+        f"{[f'{r:.3e}' for r in c2_true]}")
+    if not bool(c2res.converged.all()) or max(c2_true) > CONFIG2_RTOL:
+        fail(f"config 2: converged {c2res.converged.tolist()}, true "
+             f"residuals {c2_true}")
+    if max(col_iters) != c2res.iters:
+        fail(f"config 2: column iterations {col_iters}, iters {c2res.iters}")
+    c2warm_ms = warm(c2step, c2b)
+    c2_variants = {}
+    col0 = c2b[:, :1].contiguous()
+    for solver in ("fgmres", "single_reduce", "pipeline"):
+        vstep, _ = bsr_gmres_entry(dims=CONFIG2_DIMS, device="cuda",
+                                   solver=solver)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vres = vstep(col0)
+        torch.cuda.synchronize()
+        vms = (time.perf_counter() - t0) * 1e3
+        v_true = host_residual(c2csr, vres.x[:, 0], col0[:, 0])
+        log(f"config 2 column 0, {solver}: converged "
+            f"{bool(vres.converged.all())} iters {vres.iters} solve "
+            f"{vms:.1f} ms; true relative residual (host CSR, f64) "
+            f"{v_true:.3e}")
+        if not bool(vres.converged.all()) or not v_true <= CONFIG2_RTOL:
+            fail(f"config 2 {solver}: converged {vres.converged.tolist()}, "
+                 f"true residual {v_true:.3e}")
+        c2_variants[solver] = (vres.iters, vms, vstep)
+
     # -- 8. timings at the main paths' shapes --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     n0, n1, nd = fine.n_rows_pad, a1.n_rows_pad, len(a1.offsets)
@@ -1503,6 +1638,23 @@ def main():
         f"iterations (first solve {fsolve_ms:.1f} ms); launches per "
         f"iteration {f_per}")
 
+    for label, run in gmres_runs.items():
+        log(f"GMRES(30) {GRID} {label} solve: {run['warm']:.2f} ms wall, "
+            f"{run['warm'] / GMRES_ITERS:.3f} ms/iter over {GMRES_ITERS} "
+            f"iterations (first solve {run['first']:.1f} ms; plain versions "
+            f"{run['plain']:.1f} ms); launches per iteration {run['per']}; "
+            f"the solve's own peak memory {run['peak']:.2f} GiB")
+    log(f"AMG-GMRES(30) solve: {awarm_ms:.2f} ms wall, "
+        f"{awarm_ms / max(aiters, 1):.3f} ms/iter over {aiters} iterations "
+        f"(first solve {asolve_ms:.1f} ms; plain versions {aplain_ms:.1f} "
+        f"ms); launches per iteration {a_per}")
+    log(f"BASELINE config 2 solve ({grid2c}, nrhs {c2b.shape[1]}, f64): "
+        f"{c2warm_ms:.2f} ms wall, {c2warm_ms / max(c2res.iters, 1):.4f} "
+        f"ms/iter over {c2res.iters} iterations (first solve "
+        f"{c2solve_ms:.1f} ms); column 0 variants " + ", ".join(
+            f"{k} {it} iters {ms:.1f} ms" for k, (it, ms, _) in
+            c2_variants.items()))
+
     # -- 9. one solve of each path under the profiler: device time by kernel
     # (last, so that it cannot disturb the timings above)
     profile("CG solve", lambda: step(b, state), focus="stencil_kernel")
@@ -1513,6 +1665,12 @@ def main():
     profile("fused CG solve", lambda: fstep(fb))
     profile("elasticity AMG-PCG solve", lambda: estep(eb, est))
     profile("plane-layout CG solve", lambda: pstep(pb))
+    for label, run in gmres_runs.items():
+        profile(f"GMRES(30) {label} solve", lambda: run["step"](*run["args"]),
+                focus="stencil_kernel")
+    profile("AMG-GMRES(30) solve", lambda: astep(ab, ast),
+            focus="stencil_kernel")
+    profile("BASELINE config 2 solve", lambda: c2step(c2b))
 
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -30,13 +30,17 @@ from trilinos_tpu.solvers import cg as j_cg
 
 import trilinos_tpu_torch
 from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
-                                      cheb_entry, elasticity_entry, entry,
-                                      fused_cg_entry, sstep_entry)
-from trilinos_tpu_torch.galeri import elasticity3d, rigid_body_modes
+                                      bsr_gmres_entry, cheb_entry,
+                                      elasticity_entry, entry,
+                                      fused_cg_entry, gmres_entry,
+                                      sstep_entry)
+from trilinos_tpu_torch.galeri import (elasticity3d, laplace3d,
+                                       rigid_body_modes)
 from trilinos_tpu_torch.ops import (bdia_spmm, bdia_spmv, cg_fused_iteration,
-                                    dia_spmv, spgemm, stencil_poly_apply,
-                                    stencil_powers_apply, stencil_spmv)
-from trilinos_tpu_torch.precond import BlockStructuredAmg
+                                    dia_spmv, spgemm, spmv,
+                                    stencil_poly_apply, stencil_powers_apply,
+                                    stencil_spmv)
+from trilinos_tpu_torch.precond import BlockStructuredAmg, SaAmg
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -93,6 +97,51 @@ def test_new_paths_launch_no_kernel_on_the_cpu():
     assert [fn.launches for fn in counters] == [0, 0, 0, 0]
     assert stencil_poly_apply.kernel_launches == 0
     assert stencil_powers_apply.kernel_launches == 0
+
+
+def test_gmres_entry_matches_jax_and_runs_on_the_cpu():
+    """gmres_entry at 16³: unpreconditioned GMRES(30) with CGS2 at rtol 0
+    (the fixed-work form) against the JAX package's gmres on its StencilOp,
+    f64: the same iterations and x; then AMG-preconditioned and with a bf16
+    basis, where no kernel launches on the CPU."""
+    from trilinos_tpu.solvers import gmres as j_gmres
+
+    step, (b, st) = gmres_entry(dtype=np.float64, device="cpu", rtol=0.0,
+                                maxiter=40)
+    assert st is None
+    res = step(b, st)
+    op = j_laplace3d(16, 16, 16, dtype=np.float64, fmt="stencil")
+    jres = j_gmres(lambda v: j_spmv(op, v), jnp.asarray(b.numpy()),
+                   restart=30, rtol=0.0, maxiter=40, ortho="CGS2")
+    assert res.iters == int(jres.iters) == 60  # two whole cycles
+    assert rel(res.x.numpy(), jres.x) <= 1e-9
+    stencil_spmv.launches = dia_spmv.launches = 0
+    amg = SaAmg(laplace3d(16, 16, 16, dtype=np.float32, fmt="stencil"),
+                {"dtype": np.float32}, device="cpu").compute()
+    m_step, (mb, mst) = gmres_entry(amg=amg)
+    mres = m_step(mb, mst)
+    assert bool(mres.converged) and mres.iters < 30
+    fine = laplace3d(16, 16, 16, dtype=np.float64, fmt="stencil")
+    r = mb.double() - spmv(fine, mres.x.double())
+    assert float(r.norm() / mb.double().norm()) <= 1e-5
+    b_step, b_args = gmres_entry(device="cpu", basis_dtype=torch.bfloat16,
+                                 rtol=0.0, maxiter=30)
+    bres = b_step(*b_args)
+    assert bres.iters == 30 and bool(torch.isfinite(bres.x).all())
+    assert stencil_spmv.launches == 0 and dia_spmv.launches == 0
+
+
+def test_bsr_gmres_entry_runs_on_the_cpu():
+    """BASELINE config 2 at 8³: BSR b = 4, Relaxation, GMRES(30), nrhs 4,
+    f64; every column's true residual ≤ 1e-7 (the JAX twin is in
+    tests/test_torch_gmres.py)."""
+    step, (b,) = bsr_gmres_entry(dims=(8, 8, 8), device="cpu")
+    assert b.shape == (512, 4) and b.dtype == torch.float64
+    res = step(b)
+    assert bool(res.converged.all())
+    dense = torch.from_numpy(laplace3d(8, 8, 8).to_dense())
+    true = (b - dense @ res.x).norm(dim=0) / b.norm(dim=0)
+    assert bool((true <= 1e-7).all())
 
 
 def jax_elasticity_rhs(a, npad):
@@ -191,7 +240,13 @@ def test_port_imports_no_jax():
             "trilinos_tpu_torch/ops/fe.py",
             "trilinos_tpu_torch/galeri/fem.py",
             "trilinos_tpu_torch/precond/block_amg.py",
-            "trilinos_tpu_torch/native/__init__.py"} <= names
+            "trilinos_tpu_torch/native/__init__.py",
+            "trilinos_tpu_torch/ops/compensated.py",
+            "trilinos_tpu_torch/precond/jacobi.py",
+            "trilinos_tpu_torch/solvers/gmres.py",
+            "trilinos_tpu_torch/solvers/gmres_ca.py",
+            "trilinos_tpu_torch/solvers/status.py",
+            "trilinos_tpu_torch/solvers/linear_problem.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -204,7 +259,8 @@ def test_default_device_needs_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
     for fn in (block_entry, cheb_entry, sstep_entry, fused_cg_entry,
-               elasticity_entry, bdia_cg_entry):
+               elasticity_entry, bdia_cg_entry, gmres_entry,
+               bsr_gmres_entry):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
     from trilinos_tpu_torch.galeri import laplace3d

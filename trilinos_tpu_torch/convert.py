@@ -14,9 +14,11 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .ops.formats import BdiaMatrix, DiaMatrix, dia_from_host
+from .ops.formats import (BdiaMatrix, BsrMatrix, CsrHost, DiaMatrix,
+                          EllMatrix, dia_from_host)
 from .ops.stencil_op import StencilOp
 from .precond.amg import structured_block
+from .precond.jacobi import Relaxation
 
 
 def _to_device(arr, device) -> torch.Tensor:
@@ -60,6 +62,35 @@ def bdia_from_numpy(data, offsets, block_size: int, n_rows: int, n_cols: int,
     return BdiaMatrix(data=t, offsets=tuple(int(o) for o in offsets),
                       block_size=b, n_rows=int(n_rows), n_cols=int(n_cols),
                       nnz=int(nnz))
+
+
+def ell_from_numpy(cols, vals, n_rows: int, n_cols: int, nnz: int,
+                   device=None) -> EllMatrix:
+    """An EllMatrix from its (n_rows_pad, k) column and value arrays."""
+    return EllMatrix(cols=torch.from_numpy(np.array(cols, np.int64)).to(
+        resolve_device(device)), vals=_to_device(vals, device),
+        n_rows=int(n_rows), n_cols=int(n_cols), nnz=int(nnz))
+
+
+def bsr_from_numpy(bcols, bvals, block_size: int, n_rows: int, n_cols: int,
+                   nnz: int, device=None) -> BsrMatrix:
+    """A BsrMatrix from its (n_brows_pad, kb) block columns and
+    (n_brows_pad, kb, b, b) blocks."""
+    return BsrMatrix(bcols=torch.from_numpy(np.array(bcols, np.int64)).to(
+        resolve_device(device)), bvals=_to_device(bvals, device),
+        block_size=int(block_size), n_rows=int(n_rows), n_cols=int(n_cols),
+        nnz=int(nnz))
+
+
+def relaxation_from_numpy(a: CsrHost, dinv, omega: float, sweeps: int,
+                          params=None, device=None) -> Relaxation:
+    """A computed port ``Relaxation`` on host matrix ``a`` whose state is
+    the given padded inverse diagonal, damping factor and sweep count (the
+    JAX one's ``dinv``, ``omega`` and ``sweeps``); more than one sweep packs
+    ``a`` with ``choose_format`` in dinv's dtype, as ``compute()`` does."""
+    m = Relaxation(a, params, device=device).initialize()
+    m.set_state(_to_device(dinv, device), omega, sweeps)
+    return m
 
 
 def stencil_from_fields(dims, offsets, coeffs, n_rows_pad: int,

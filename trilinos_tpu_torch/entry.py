@@ -23,6 +23,23 @@ max_restarts = 4, rtol = 0, σ = 12: five cycles of 32 basis vectors);
 ``fused_cg_entry()``: unpreconditioned CG with one fused iteration kernel
 per iteration (rtol 1e-5, maxiter 2000 by default); ``step(b)``.
 
+``gmres_entry()``: GMRES(30) with CGS2 on the same matrix-free operator,
+the JAX bench's ``bench_gmres`` solver; right-preconditioned by the
+structured hierarchy when one is given as ``amg=``, with an optional
+narrower ``basis_dtype``; ``step(b, state)`` (state None when
+unpreconditioned).
+
+``bsr_gmres_entry()``: BASELINE config 2, "Laplace3D 64³ BSR,
+Jacobi-preconditioned GMRES(30), multi-vector SpMM nrhs=4": Galeri
+Laplace3D stored as a BsrMatrix with b = 4, right-preconditioned by
+``Relaxation`` (Jacobi), pseudo-block GMRES(30) on nrhs = 4 seed-1 normals
+(the JAX package's BASELINE test), float64, rtol 1e-8, maxiter 1000;
+``step(b)``.
+``solver`` picks the GMRES variant on the same problem ("gmres",
+"fgmres", "single_reduce" or "pipeline"); ``history=True`` (gmres and
+fgmres) returns each column's residual trace, whose last finite entry is
+that column's iteration count.
+
 ``elasticity_entry()``: CG preconditioned by the block-structured
 null-space AMG (``BlockStructuredAmg``: rigid-body modes, BDIA levels) on
 Galeri ``elasticity3d`` with E = 1, the JAX package's bench configuration
@@ -51,10 +68,11 @@ import torch
 from .device import resolve_device, torch_dtype
 from .galeri import elasticity3d, laplace3d, rigid_body_modes
 from .ops.bdia_spmv import bdia_plane_solver_op
-from .ops.formats import csr_to_bdia
+from .ops.formats import csr_to_bdia, csr_to_bsr
 from .ops.matvec import spmv
-from .precond import BlockStructuredAmg, SaAmg
-from .solvers import block_gmres, cg, cg_fused, sstep_gmres
+from .precond import BlockStructuredAmg, Relaxation, SaAmg
+from .solvers import (block_gmres, cg, cg_fused, fgmres, gmres,
+                      gmres_pipeline, gmres_single_reduce, sstep_gmres)
 
 
 def _hierarchy(dims, dtype, device, amg, smoother="jacobi"):
@@ -127,6 +145,54 @@ def fused_cg_entry(dims=(16, 16, 16), dtype=np.float32, device=None,
         return cg_fused(op, b_vec, rtol=rtol, maxiter=maxiter)
 
     return step, (_rhs(op, resolve_device(device), torch_dtype(dtype)),)
+
+
+def gmres_entry(dims=(16, 16, 16), dtype=np.float32, device=None, amg=None,
+                basis_dtype=None, rtol=1e-5, maxiter=1000):
+    if amg is None:
+        op = laplace3d(*dims, dtype=dtype, fmt="stencil")
+        dev, m, st = resolve_device(device), None, None
+    else:
+        op, m = _hierarchy(dims, dtype, device, amg)
+        dev, st = m.device, m.state()
+
+    def step(b_vec: torch.Tensor, st):
+        prec = None if st is None else (lambda v: m.apply_state(st, v))
+        return gmres(lambda v: spmv(op, v), b_vec, prec=prec, restart=30,
+                     rtol=rtol, maxiter=maxiter, ortho="CGS2",
+                     basis_dtype=basis_dtype)
+
+    return step, (_rhs(op, dev, torch_dtype(dtype)), st)
+
+
+_GMRES_VARIANTS = {"gmres": gmres, "fgmres": fgmres,
+                   "single_reduce": gmres_single_reduce,
+                   "pipeline": gmres_pipeline}
+
+
+def bsr_gmres_entry(dims=(64, 64, 64), device=None, solver="gmres",
+                    history=False):
+    solve = _GMRES_VARIANTS[solver]
+    extra = {"history": True} if history else {}
+    a = laplace3d(*dims)
+    dev = resolve_device(device)
+    bsr = csr_to_bsr(a, 4, device=dev)
+    m = Relaxation(a, device=dev).compute()
+    npad, nd = bsr.n_rows_pad, m.dinv.shape[0]
+
+    def prec(v):
+        out = m(v[:nd])
+        return torch.nn.functional.pad(
+            out, (0, 0) * (out.ndim - 1) + (0, npad - out.shape[0]))
+
+    def step(b_mv: torch.Tensor):
+        return solve(lambda v: spmv(bsr, v), b_mv, prec=prec, restart=30,
+                     rtol=1e-8, maxiter=1000, **extra)
+
+    host = np.zeros((npad, 4))
+    host[:a.shape[0]] = np.random.default_rng(1).standard_normal(
+        (a.shape[0], 4))
+    return step, (torch.from_numpy(host).to(dev),)
 
 
 def elasticity_entry(dims=(8, 8, 8), dtype=np.float32, device=None,

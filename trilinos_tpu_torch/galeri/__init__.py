@@ -6,13 +6,20 @@ from .fem import (
     uniflow2d,
 )
 from .stencils import (
+    big_star2d,
+    brick3d,
+    create_matrix,
     laplace1d,
     laplace2d,
     laplace3d,
+    maxwell2d,
+    recirc2d,
+    star2d,
     stencil_csr,
     stencil_dia,
 )
 
-__all__ = ["elasticity2d", "elasticity3d", "helmholtz2d", "laplace1d",
-           "laplace2d", "laplace3d", "rigid_body_modes", "stencil_csr",
-           "stencil_dia", "uniflow2d"]
+__all__ = ["big_star2d", "brick3d", "create_matrix", "elasticity2d",
+           "elasticity3d", "helmholtz2d", "laplace1d", "laplace2d",
+           "laplace3d", "maxwell2d", "recirc2d", "rigid_body_modes", "star2d",
+           "stencil_csr", "stencil_dia", "uniflow2d"]

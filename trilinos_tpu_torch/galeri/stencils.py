@@ -1,8 +1,10 @@
 """Galeri-equivalent stencil problem generators.
 
 Counterpart of ``trilinos_tpu/galeri/stencils.py`` (a copy of its host
-code). Operators are emitted in closed form as host CSR, as device DIA,
-or as a matrix-free :class:`StencilOp`.
+code): Laplace1D/2D/3D, Star2D, BigStar2D, Brick3D, Recirc2D, the
+``create_matrix`` string factory (Galeri's CreateCrsMatrix) and the
+Maxwell2D curl-curl problem. Operators are emitted in closed form as host
+CSR, as device DIA, or as a matrix-free :class:`StencilOp`.
 
 Grid numbering is lexicographic, gid = ix + nx*(iy + ny*iz); boundaries
 are Dirichlet-truncated (out-of-range neighbours are absent).
@@ -117,10 +119,29 @@ def star2d_stencil(a, b, c, d, e, z1, z2, z3, z4) -> Stencil:
         ((-1, -1), z1), ((1, -1), z2), ((-1, 1), z3), ((1, 1), z4)]
 
 
+def big_star2d_stencil(a, b, c, d, e, z1, z2, z3, z4, bb, cc, dd,
+                       ee) -> Stencil:
+    # Galeri BigStar2D: 13-point (star + distance-2 cross)
+    return star2d_stencil(a, b, c, d, e, z1, z2, z3, z4) + [
+        ((-2, 0), bb), ((2, 0), cc), ((0, -2), dd), ((0, 2), ee)]
+
+
 def cross3d_stencil(a, b, c, d, e, f, g) -> Stencil:
     # Galeri Cross3D: b/c left-right, d/e lower-upper, f/g below-above
     return [((0, 0, 0), a), ((-1, 0, 0), b), ((1, 0, 0), c),
             ((0, -1, 0), d), ((0, 1, 0), e), ((0, 0, -1), f), ((0, 0, 1), g)]
+
+
+def brick3d_stencil(a, b, c, d) -> Stencil:
+    """27-point stencil: center a, faces b, edges c, corners d (Galeri
+    Brick3D)."""
+    st = []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                st.append(((dx, dy, dz),
+                           (a, b, c, d)[abs(dx) + abs(dy) + abs(dz)]))
+    return st
 
 
 def laplace1d(n: int, dtype=np.float64, fmt: str = "csr", device=None):
@@ -142,6 +163,70 @@ def laplace3d(nx: int, ny: int, nz: int, dtype=np.float64, fmt: str = "csr",
                  fmt, device)
 
 
+def star2d(nx: int, ny: int, a=5.0, b=-1.0, c=-1.0, d=-1.0, e=-1.0,
+           z1=-0.25, z2=-0.25, z3=-0.25, z4=-0.25, dtype=np.float64,
+           fmt: str = "csr", device=None):
+    return _emit((nx, ny), star2d_stencil(a, b, c, d, e, z1, z2, z3, z4),
+                 dtype, fmt, device)
+
+
+def big_star2d(nx: int, ny: int, dtype=np.float64, fmt: str = "csr",
+               device=None):
+    """Galeri's default coefficients: BigStar2D(20, -8 ×4, 2 ×4, 1 ×4)."""
+    st = big_star2d_stencil(20.0, -8.0, -8.0, -8.0, -8.0,
+                            2.0, 2.0, 2.0, 2.0, 1.0, 1.0, 1.0, 1.0)
+    return _emit((nx, ny), st, dtype, fmt, device)
+
+
+def brick3d(nx: int, ny: int, nz: int, dtype=np.float64, fmt: str = "csr",
+            device=None):
+    """27-point Brick3D with the standard (26, -1) fill."""
+    return _emit((nx, ny, nz), brick3d_stencil(26.0, -1.0, -1.0, -1.0),
+                 dtype, fmt, device)
+
+
+def recirc2d(nx: int, ny: int, lx=1.0, ly=1.0, conv=1.0, diff=1e-5,
+             dtype=np.float64, fmt: str = "csr", device=None):
+    """Recirculating convection-diffusion, upwinded (Galeri Recirc2D): the
+    nonsymmetric model problem."""
+    hx = lx / (nx + 1)
+    hy = ly / (ny + 1)
+
+    def fields(ix, iy):
+        x = hx * (ix + 1)
+        y = hy * (iy + 1)
+        conv_x = conv * 4 * x * (x - 1.0) * (1.0 - 2 * y) / hx
+        conv_y = -conv * 4 * y * (y - 1.0) * (1.0 - 2 * x) / hy
+        a = np.zeros_like(x)
+        b = np.zeros_like(x)
+        c = np.zeros_like(x)
+        d = np.zeros_like(x)
+        e = np.zeros_like(x)
+        neg_x = conv_x < 0
+        c += np.where(neg_x, conv_x, 0.0)
+        a -= np.where(neg_x, conv_x, 0.0)
+        b -= np.where(~neg_x, conv_x, 0.0)
+        a += np.where(~neg_x, conv_x, 0.0)
+        neg_y = conv_y < 0
+        e += np.where(neg_y, conv_y, 0.0)
+        a -= np.where(neg_y, conv_y, 0.0)
+        d -= np.where(~neg_y, conv_y, 0.0)
+        a += np.where(~neg_y, conv_y, 0.0)
+        a += diff * 2.0 / (hx * hx) + diff * 2.0 / (hy * hy)
+        b -= diff / (hx * hx)
+        c -= diff / (hx * hx)
+        d -= diff / (hy * hy)
+        e -= diff / (hy * hy)
+        return a, b, c, d, e
+
+    def pick(i):
+        return lambda ix, iy: fields(ix.astype(float), iy.astype(float))[i]
+
+    st = [((0, 0), pick(0)), ((-1, 0), pick(1)), ((1, 0), pick(2)),
+          ((0, -1), pick(3)), ((0, 1), pick(4))]
+    return _emit((nx, ny), st, dtype, fmt, device)
+
+
 def _emit(dims, st, dtype, fmt, device):
     """``device`` places the stored ``"dia"`` form; ``"csr"`` is host
     numpy and ``"stencil"`` holds no arrays, so neither takes one."""
@@ -157,3 +242,84 @@ def _emit(dims, st, dtype, fmt, device):
             raise ValueError("fmt='stencil' requires constant coefficients")
         return StencilOp.create(dims, st, dtype=str(np.dtype(dtype)))
     raise ValueError(f"unknown fmt {fmt!r}")
+
+
+def create_matrix(name: str, params: dict, dtype=np.float64,
+                  fmt: str = "csr", device=None):
+    """String factory over the Galeri problems (Galeri's CreateCrsMatrix
+    name dispatch); ``params`` holds nx, ny, nz and the problem's own
+    parameters. The finite-element problems come from :mod:`.fem`, and
+    maxwell2d returns the pair (A, G)."""
+    from . import fem
+
+    p = dict(params)
+    nx, ny, nz = p.get("nx"), p.get("ny"), p.get("nz")
+    key = name.lower()
+    if key == "laplace1d":
+        return laplace1d(nx, dtype, fmt, device)
+    if key == "laplace2d":
+        return laplace2d(nx, ny, dtype, fmt, device)
+    if key == "laplace3d":
+        return laplace3d(nx, ny, nz, dtype, fmt, device)
+    if key == "star2d":
+        return star2d(nx, ny, dtype=dtype, fmt=fmt, device=device)
+    if key == "bigstar2d":
+        return big_star2d(nx, ny, dtype, fmt, device)
+    if key == "brick3d":
+        return brick3d(nx, ny, nz, dtype, fmt, device)
+    if key == "recirc2d":
+        return recirc2d(nx, ny, conv=p.get("conv", 1.0),
+                        diff=p.get("diff", 1e-5), dtype=dtype, fmt=fmt,
+                        device=device)
+    if key == "cross2d":
+        st = cross2d_stencil(p["a"], p["b"], p["c"], p["d"], p["e"])
+        return _emit((nx, ny), st, dtype, fmt, device)
+    if key == "elasticity2d":
+        return fem.elasticity2d(nx, ny, e_mod=p.get("E", 1e9),
+                                nu=p.get("nu", 0.25))
+    if key == "helmholtz2d":
+        return fem.helmholtz2d(nx, ny, k=p.get("k", 1.0), fmt=fmt,
+                               device=device)
+    if key == "uniflow2d":
+        return fem.uniflow2d(nx, ny, conv=p.get("conv", 1.0),
+                             diff=p.get("diff", 1e-5),
+                             alpha=p.get("alpha", 0.0))
+    if key == "maxwell2d":
+        return maxwell2d(nx, ny, sigma=p.get("sigma", 1.0))
+    raise ValueError(f"unknown Galeri matrix type {name!r}")
+
+
+def maxwell2d(nx: int, ny: int, sigma=1.0, dtype=np.float64):
+    """2-D eddy-current (curl-curl) problem on edge unknowns: A = CᵀC + σ·I
+    and the discrete gradient G (edges × nodes) whose range spans
+    curl-curl's null space (the Hiptmair smoother's target problem).
+    x-edges (nx·(ny+1)) are numbered first, then y-edges ((nx+1)·ny).
+    Returns (A, G) as host CSR."""
+    from ..ops.matrix_ops import diag_matrix, spadd, spgemm
+
+    n_nodes = (nx + 1) * (ny + 1)
+    n_ex = nx * (ny + 1)
+    n_e = n_ex + (nx + 1) * ny
+    # gradient: each edge gets +1 at its head node, -1 at its tail
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny + 1), indexing="xy")
+    ex, ex_tail = (i + nx * j).ravel(), (i + (nx + 1) * j).ravel()
+    i, j = np.meshgrid(np.arange(nx + 1), np.arange(ny), indexing="xy")
+    ey, ey_tail = (n_ex + i + (nx + 1) * j).ravel(), (i + (nx + 1) * j).ravel()
+    rows_g = np.stack([np.r_[ex, ey], np.r_[ex, ey]], axis=1).ravel()
+    cols_g = np.stack([np.r_[ex_tail + 1, ey_tail + nx + 1],
+                       np.r_[ex_tail, ey_tail]], axis=1).ravel()
+    vals_g = np.tile([1.0, -1.0], n_e).astype(dtype)
+    g = CsrHost.from_coo(rows_g, cols_g, vals_g, (n_e, n_nodes))
+    # curl: each face sums its four edges counter-clockwise
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing="xy")
+    i, j = i.ravel(), j.ravel()
+    f = i + nx * j
+    rows_c = np.repeat(f, 4)
+    cols_c = np.stack([i + nx * j, n_ex + (i + 1) + (nx + 1) * j,
+                       i + nx * (j + 1), n_ex + i + (nx + 1) * j],
+                      axis=1).ravel()
+    vals_c = np.tile([1.0, 1.0, -1.0, -1.0], nx * ny).astype(dtype)
+    c = CsrHost.from_coo(rows_c, cols_c, vals_c, (nx * ny, n_e))
+    sig = (np.full(n_e, float(sigma)) if np.isscalar(sigma)
+           else np.asarray(sigma, dtype=np.float64))
+    return spadd(spgemm(c.transpose(), c), diag_matrix(sig), 1.0, 1.0), g

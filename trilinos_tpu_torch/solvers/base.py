@@ -29,6 +29,12 @@ class SolveResult:
     iters: int  # iterations performed
     resnorm: torch.Tensor  # certified residual norm(s), per RHS column
     converged: torch.Tensor  # bool per RHS column
+    # optional condition estimate of the preconditioned operator from the
+    # solver's own recurrence; None unless requested
+    condest: torch.Tensor | None = None
+    # optional per-iteration implicit residual norms, NaN past the final
+    # iteration (the StatusTestOutput trace as data); None unless requested
+    history: torch.Tensor | None = None
 
 
 def identity_prec(x: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,10 @@ from ..parallel.comm import Comm, SerialComm
 from .base import (Operator, SolveResult, bcast_cols, certified_solve,
                    identity_prec, rhs_norm_scale, safe_divide)
 
-_LATER = "is not ported yet (ROADMAP.md queue 1 item 2, cg options)"
+# solvers/status.py and ops/compensated.py exist (gmres takes stop, history,
+# condest and compensated); what is left is their wiring into cg
+_LATER = ("is not wired into cg yet: only the cg wiring is left (ROADMAP.md "
+          "queue 1 item 3, cg options)")
 
 
 def cg(op: Operator, b: torch.Tensor, x0: torch.Tensor | None = None, *,

@@ -217,3 +217,50 @@ def masked_lstsq(h: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     y = torch.linalg.solve_triangular(r_m, qtr, upper=True)
     y = torch.where(good[:, None], y, 0.0)
     return y[:, 0] if rhs.ndim == 1 else y
+
+
+# -- pseudo-block passes: k independent bases, one per right-hand side ------
+# v is (k, p, n) (basis vectors as rows, one basis per RHS) and w is (k, n);
+# each pass is one batched GEMM per product, c is (k, p). The caller widens
+# a narrower basis to w's dtype first.
+
+
+def project_rows(comm: Comm, v: torch.Tensor, w: torch.Tensor):
+    """One classical-GS pass per basis: c_i = v_iᵀ w_i, w_i ← w_i − v_i c_i."""
+    c = comm.psum(torch.bmm(v, w[:, :, None]))
+    w2 = torch.baddbmm(w[:, :, None], v.transpose(1, 2), c, alpha=-1)
+    return w2[:, :, 0], c[:, :, 0]
+
+
+def cgs2_project_rows(comm: Comm, v: torch.Tensor, w: torch.Tensor):
+    """CGS2 per basis: two unconditional passes. Returns (w, c_total)."""
+    w1, c1 = project_rows(comm, v, w)
+    w2, c2 = project_rows(comm, v, w1)
+    return w2, c1 + c2
+
+
+def dgks_project_rows(comm: Comm, v: torch.Tensor, w: torch.Tensor,
+                      dep_tol: float = DGKS_DEP_TOL):
+    """DGKS per basis: each RHS takes the second pass only if its vector
+    lost more than dep_tol of its norm. Both passes run for all and each
+    row keeps its own (no host read)."""
+    norms_before = comm.psum((w * w).sum(dim=1))
+    w1, c1 = project_rows(comm, v, w)
+    norms_after = comm.psum((w1 * w1).sum(dim=1))
+    need = (norms_after < (dep_tol ** 2) * norms_before)[:, None]
+    w2, c2 = project_rows(comm, v, w1)
+    return torch.where(need, w2, w1), torch.where(need, c1 + c2, c1)
+
+
+def mgs_project_rows(comm: Comm, v: torch.Tensor, w: torch.Tensor,
+                     passes: int = 1):
+    """Modified Gram-Schmidt per basis over all p columns of v: one
+    reduction per basis vector and pass (IMGS: passes=2)."""
+    c = torch.zeros(v.shape[:2], dtype=w.dtype, device=w.device)
+    for _ in range(passes):
+        for j in range(v.shape[1]):
+            vj = v[:, j].to(w.dtype)
+            cj = comm.psum((vj * w).sum(dim=1))
+            w = w - vj * cj[:, None]
+            c[:, j] += cj
+    return w, c
