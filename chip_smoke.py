@@ -5,8 +5,9 @@
 Builds the hand-written CUDA kernels from ``trilinos_tpu_torch/csrc/``
 and the native host SpGEMM, holds each kernel against its plain PyTorch
 version on the card at every shape the paths give it, and drives ten
-paths, each once through the kernels and once through the plain versions.
-Seven run on the 256³ Laplace3D stencil:
+paths, each once through the kernels and once through the plain versions,
+before the factory's paths below. Seven run on the 256³ Laplace3D
+stencil:
 
 * structured-AMG-preconditioned CG (``entry``) and AMG-preconditioned
   block GMRES, nrhs = 16, CGS2 + CholQR2 (``block_entry``), on one
@@ -32,14 +33,29 @@ b = 4, Relaxation, pseudo-block GMRES(30) on 4 right-hand sides, f64) runs
 no hand-written kernel; it is gated on every column's true residual, and
 ``fgmres``, ``gmres_single_reduce`` and ``gmres_pipeline`` run its column 0.
 
+Then the solver factory: every single-RHS Belos kind through
+``create_solver(name).solve(LinearProblem(...))`` (``factory_entry``) on
+the 256³ stencil and the CG path's hierarchy (CG with its condition
+estimate and residual history, Pipelined CG, stochastic CG, RCG, MINRES,
+BiCGStab, TFQMR, Fixed Point, GCRODR twice, the second solve from the
+first's recycle space, Hybrid Block GMRES, and LSQR unpreconditioned at a
+fixed 200 iterations), Block CG with 16 right-hand sides and Block GCRODR
+with 4; BASELINE config 4 on one card (``pipelined_cg_entry``: Laplace3D
+128³ as DIA, f64, pipelined CG, rtol 1e-8); and the Stratimikos path
+(``build_entry``) on the 256³ Laplace3D stored as DIA from a host CSR:
+CG + CHEBYSHEV, and GMRES(30) + GMRESPOLY at a fixed 60 iterations, whose
+true residual must fall below plain GMRES(30)'s. LSQR, Block CG, config
+4 and the Chebyshev solve run again through the plain versions.
+
 Every hierarchy set-up must be served by the native SpGEMM. Each path
 is driven with the launch counts set to 0 just before it and read just
 after. It times each warm solve, times each kernel (device time of
 CUDA-graph replays, and the host path of calls from Python) beside its
 bound, its plain version and one PyTorch library call where there is one
 (both by graph replay), profiles one solve of each path (device time by
-kernel), and ends with one JSON line naming the device. Any failure exits non-zero; without a CUDA
-device it exits non-zero before doing anything.
+kernel), prints its total time, and ends with one JSON line naming the
+device. Any failure exits non-zero; without a CUDA device it exits
+non-zero before doing anything.
 """
 import collections
 import contextlib
@@ -97,6 +113,18 @@ GMRES_ITERS = 120  # fixed-work GMRES(30) at rtol 0: four cycles
 GMRES_BF16_X_TOL = 1e-4  # kernel and plain runs with a bf16 basis
 CONFIG2_DIMS = (64, 64, 64)  # BASELINE config 2 at its stated size
 CONFIG2_RTOL = 1e-7  # its true-residual gate, every column
+LSQR_ITERS = 200  # LSQR through the factory at rtol 0: a fixed count
+# its true residual after those steps: about twice the 1.398e-2 that the
+# kernel and plain runs both read at 256³ (H100, f32); the run is fixed-work
+LSQR_TRUE_MAX = 3e-2
+POLY_ITERS = 60  # GMRES(30) + GmresPoly through build(): two cycles, rtol 0
+CONFIG4_DIMS = (128, 128, 128)  # BASELINE config 4 on one card
+CONFIG4_RTOL = 1.1e-8  # the JAX test's gate: ‖b − A x‖ ≤ 1.1e-8 ‖b‖
+CONFIG4_CPU_ITERS = 447  # unpreconditioned CG on this problem, CPU, f64
+# the DIA kernel at k = 1 sums each row in the plain version's order, so the
+# kernel and plain config-4 solves may part only by rounding
+CONFIG4_X_TOL = 1e-8
+F64_FLOPS_PER_MS = 34e12 / 1e3  # H100 SXM float64 outside the tensor cores
 BATCH, SAMPLES = 10, 25
 
 
@@ -327,6 +355,7 @@ def profile(label, fn, focus=None):
 
 
 def main():
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -340,10 +369,11 @@ def main():
 
     from trilinos_tpu_torch import native
     from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
-                                          bsr_gmres_entry, cheb_entry,
-                                          elasticity_entry, entry,
+                                          bsr_gmres_entry, build_entry,
+                                          cheb_entry, elasticity_entry,
+                                          entry, factory_entry,
                                           fused_cg_entry, gmres_entry,
-                                          sstep_entry)
+                                          pipelined_cg_entry, sstep_entry)
     from trilinos_tpu_torch.galeri import (elasticity2d, elasticity3d,
                                            laplace3d, rigid_body_modes)
     from trilinos_tpu_torch.galeri.stencils import (cross3d_stencil,
@@ -360,9 +390,9 @@ def main():
                                         stencil_powers_apply,
                                         stencil_powers_plain, stencil_spmm,
                                         stencil_spmv, stencil_spmv_plain)
-    from trilinos_tpu_torch.ops import (_build, csr_to_bdia, matvec,
-                                        pack_planes, smalldense, spgemm,
-                                        stencil_op)
+    from trilinos_tpu_torch.ops import (_build, choose_format, csr_to_bdia,
+                                        matvec, pack_planes, smalldense,
+                                        spgemm, stencil_op)
     from trilinos_tpu_torch.ops.stencil_poly import (monomial_stages,
                                                      stencil_chebyshev_setup)
     from trilinos_tpu_torch.precond import BlockStructuredAmg, SaAmg
@@ -1324,6 +1354,256 @@ def main():
                  f"true residual {v_true:.3e}")
         c2_variants[solver] = (vres.iters, vms, vstep)
 
+    # -- 7j. every single-RHS factory kind at 256³, AMG-preconditioned -------
+    # create_solver(name, params).solve(LinearProblem(...)) on the CG path's
+    # hierarchy (factory_entry); LSQR unpreconditioned at a fixed count
+    def drive(step_, args):
+        """step_(*args) with every count set to 0 just before and read just
+        after. Returns (result, wall ms, the counts that moved)."""
+        zero(all_kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, ms, {k: v for k, v in counts(all_kernels).items() if v}
+
+    kinds = [
+        ("CG", {"Estimate Condition Number": 20,
+                "Record Residual History": True}),
+        ("Pipelined CG", {}), ("Pseudoblock Stochastic CG", {}), ("RCG", {}),
+        ("MINRES", {}), ("BiCGStab", {}), ("TFQMR", {}), ("Fixed Point", {}),
+        ("GCRODR", {"Num Blocks": 30, "Num Recycled Blocks": 8}),
+        ("Hybrid Block GMRES", {"Maximum Degree": 4}),
+        ("LSQR", {"Convergence Tolerance": 0.0,
+                  "Maximum Iterations": LSQR_ITERS})]
+    fk_runs = {}
+    for name, params in kinds:
+        kstep, kargs = factory_entry(
+            name, {"Convergence Tolerance": RTOL, **params}, amg=amg)
+        kres, kms, klaunch = drive(kstep, kargs)
+        kiters = int(kres.iters)
+        k_true = true_residual(kres.x, kargs[0])
+        log(f"factory {name!r} {GRID} f32: converged "
+            f"{bool(torch.as_tensor(kres.converged).all())} iters {kiters} "
+            f"first solve {kms:.1f} ms launches {klaunch}; true relative "
+            f"residual (plain operator, f64) {k_true:.3e}")
+        if name == "LSQR":
+            # rtol 0: a fixed count, gated on its residual and held to the
+            # same steps through the plain versions
+            lref, lms = plain_run(kstep, *kargs)
+            l_rel_x, _ = rel_err(kres.x, lref.x)
+            log(f"LSQR plain reference: iters {int(lref.iters)} solve "
+                f"{lms:.1f} ms; max|Δx|/max|x| = {l_rel_x:.3e} (tol "
+                f"{TOL[torch.float32]:.0e}); true residual gate "
+                f"{LSQR_TRUE_MAX:.0e}")
+            if (kiters != LSQR_ITERS or int(lref.iters) != LSQR_ITERS
+                    or not k_true <= LSQR_TRUE_MAX
+                    or not l_rel_x <= TOL[torch.float32]):
+                fail(f"LSQR: {kiters} iterations (plain {int(lref.iters)}), "
+                     f"true residual {k_true:.3e}, x against plain "
+                     f"{l_rel_x:.3e}")
+            del lref
+        elif not bool(kres.converged) or not k_true <= RTOL:
+            fail(f"factory {name!r}: converged {bool(kres.converged)}, true "
+                 f"residual {k_true:.3e}")
+        need = ["stencil_spmv"] + ([] if name == "LSQR" else ["dia_spmv"])
+        need += ["chol_inv_small"] if name == "GCRODR" else []
+        for kname in need:
+            if not klaunch.get(kname):
+                fail(f"factory {name!r} never launched {kname}")
+        if name == "CG":
+            ce, h = float(kres.condest), kres.history
+            hist_ok = (bool(torch.isfinite(h[:kiters + 1]).all())
+                       and bool(torch.isnan(h[kiters + 1:]).all()))
+            log(f"factory 'CG' condition estimate {ce:.4f} (window 20); "
+                f"history finite through iteration {kiters} and NaN after: "
+                f"{hist_ok}")
+            if not (np.isfinite(ce) and ce >= 1.0 and hist_ok):
+                fail(f"CG condest {ce} or history pattern {hist_ok}")
+        if name == "GCRODR":
+            # the second solve starts from the first one's recycle space
+            space = kstep.manager.recycle_space.size
+            kres2, kms2, klaunch2 = drive(kstep, kargs)
+            k2_true = true_residual(kres2.x, kargs[0])
+            log(f"factory 'GCRODR' second solve from a recycle space of "
+                f"{space} vectors: converged {bool(kres2.converged)} iters "
+                f"{int(kres2.iters)} solve {kms2:.1f} ms launches {klaunch2}; "
+                f"true relative residual {k2_true:.3e}")
+            if space != 8 or not bool(kres2.converged) or not k2_true <= RTOL:
+                fail(f"GCRODR second solve: space {space}, converged "
+                     f"{bool(kres2.converged)}, true residual {k2_true:.3e}")
+        del kres
+        fk_runs[name] = dict(step=kstep, args=kargs, iters=kiters, first=kms,
+                             launches=klaunch, warm=warm(kstep, *kargs))
+
+    # -- 7k. the block kinds at 256³: Block CG (k = 16), Block GCRODR (k = 4)
+    spmm_by_k = collections.Counter()  # stencil SpMM launches by k
+    dia_by_k = collections.Counter()  # DIA SpMM launches by (rows, k)
+    stencil_call = stencil_op._call
+
+    def stencil_k_recorded(fn, op, x, y, *extra, plan):
+        if fn.startswith("stencil_spmm"):
+            spmm_by_k[x.shape[1]] += 1
+        return stencil_call(fn, op, x, y, *extra, plan=plan)
+
+    def dia_k_recorded(kind, a, x):
+        if kind == "spmm":
+            dia_by_k[(a.n_rows_pad, x.shape[1])] += 1
+        return dia_launch(kind, a, x)
+
+    block_runs = {}
+    for name, nrhs in (("Block CG", NRHS), ("Block GCRODR", 4)):
+        kstep, kargs = factory_entry(name, {"Convergence Tolerance": RTOL},
+                                     nrhs=nrhs, amg=amg)
+        spmm_by_k.clear()
+        dia_by_k.clear()
+        with mock.patch.object(stencil_op, "_call", stencil_k_recorded), \
+                mock.patch.object(dia_mod, "_launch", dia_k_recorded):
+            kres, kms, klaunch = drive(kstep, kargs)
+        bk64 = kargs[0].double()
+        col_rel = (torch.linalg.vector_norm(
+            bk64 - stencil_spmv_plain(fine, kres.x.double()), dim=0)
+            / torch.linalg.vector_norm(bk64, dim=0))
+        dia_k = {f"{rows} rows k={k}": c for (rows, k), c in dia_by_k.items()}
+        log(f"factory {name!r} {GRID} x {nrhs} f32: converged "
+            f"{kres.converged.tolist()} iters {int(kres.iters)} first solve "
+            f"{kms:.1f} ms launches {klaunch}; stencil SpMM launches by k "
+            f"{dict(spmm_by_k)}, DIA SpMM by level and k {dia_k}; true "
+            f"relative residuals (plain operator, f64) worst "
+            f"{float(col_rel.max()):.3e}")
+        if not bool(kres.converged.all()) or not bool((col_rel <= RTOL).all()):
+            fail(f"{name}: converged {kres.converged.tolist()}, worst true "
+                 f"residual {float(col_rel.max()):.3e}")
+        if not spmm_by_k[nrhs] or not any(k == nrhs for _, k in dia_by_k):
+            fail(f"{name}: no SpMM at k = {nrhs} ({dict(spmm_by_k)}, {dia_k})")
+        if name == "Block GCRODR" and not klaunch.get("chol_inv_small"):
+            fail("Block GCRODR never launched chol_inv_small")
+        block_runs[name] = dict(step=kstep, args=kargs, iters=int(kres.iters),
+                                first=kms, launches=klaunch,
+                                spmm_by_k=dict(spmm_by_k),
+                                dia_by_k=dict(dia_by_k))
+        if name == "Block CG":
+            bx_k = kres.x
+            del kres
+            ref, pms = plain_run(kstep, *kargs)
+            rel_x, _ = rel_err(bx_k, ref.x)
+            log(f"Block CG plain reference: iters {int(ref.iters)} solve "
+                f"{pms:.1f} ms; max|Δx|/max|x| = {rel_x:.3e} (tol "
+                f"{BLOCK_X_TOL:.0e})")
+            if abs(int(ref.iters) - block_runs[name]["iters"]) > 1 or not (
+                    rel_x <= BLOCK_X_TOL):
+                fail(f"Block CG kernel and plain solves differ: iters "
+                     f"{block_runs[name]['iters']} vs {int(ref.iters)}, x "
+                     f"{rel_x:.3e}")
+            block_runs[name]["plain"] = pms
+            del ref, bx_k
+        else:
+            del kres
+        block_runs[name]["warm"] = warm(kstep, *kargs)
+
+    # -- 7l. BASELINE config 4 on one card: pipelined CG, 128³ DIA, f64 -----
+    grid4 = "x".join(map(str, CONFIG4_DIMS))
+    t0 = time.perf_counter()
+    c4step, (c4b,) = pipelined_cg_entry(dims=CONFIG4_DIMS, device="cuda")
+    torch.cuda.synchronize()
+    c4_setup_s = time.perf_counter() - t0
+    c4a = c4step.matrix
+    # the true residual is taken against a CSR of the host matrix, not the
+    # DIA storage the solve ran on
+    c4csr = csr_f64(laplace3d(*CONFIG4_DIMS))
+    c4res, c4ms, c4launch = drive(c4step, (c4b,))
+    c4iters = int(c4res.iters)
+    c4_true = host_residual(c4csr, c4res.x, c4b)
+    log(f"BASELINE config 4 (Laplace3D {grid4} DIA {len(c4a.offsets)} diags, "
+        f"{str(c4b.dtype)[6:]}, pipelined CG, rtol 1e-8): set-up "
+        f"{c4_setup_s:.2f} s; converged {bool(c4res.converged)} iters "
+        f"{c4iters} (CPU f64 CG: {CONFIG4_CPU_ITERS}) first solve {c4ms:.1f} "
+        f"ms launches {c4launch}; true relative residual (host CSR, f64) "
+        f"{c4_true:.3e} (gate {CONFIG4_RTOL:.1e})")
+    if c4b.dtype != torch.float64 or not c4launch.get("dia_spmv"):
+        fail(f"config 4: dtype {c4b.dtype}, launches {c4launch}")
+    if not bool(c4res.converged) or not c4_true <= CONFIG4_RTOL:
+        fail(f"config 4: converged {bool(c4res.converged)}, true residual "
+             f"{c4_true:.3e}")
+    c4ref, c4plain_ms = plain_run(c4step, c4b)
+    c4rel_x, _ = rel_err(c4res.x, c4ref.x)
+    log(f"config 4 plain reference: iters {int(c4ref.iters)} solve "
+        f"{c4plain_ms:.1f} ms; max|Δx|/max|x| = {c4rel_x:.3e} (tol "
+        f"{CONFIG4_X_TOL:.0e})")
+    if abs(int(c4ref.iters) - c4iters) > 1 or not c4rel_x <= CONFIG4_X_TOL:
+        fail(f"config 4 kernel and plain solves differ: iters {c4iters} vs "
+             f"{int(c4ref.iters)}, x {c4rel_x:.3e}")
+    del c4ref, c4res
+    c4warm_ms = warm(c4step, c4b)
+
+    # -- 7m. the Stratimikos path: build() on one stored 256³ DIA matrix -----
+    t0 = time.perf_counter()
+    a256 = laplace3d(*DIMS, dtype=np.float32)
+    csr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dia256 = choose_format(a256, device="cuda")
+    torch.cuda.synchronize()
+    dia_s = time.perf_counter() - t0
+    log(f"host set-up, Galeri Laplace3D {GRID} f32: CSR {csr_s:.2f} s "
+        f"({a256.nnz} nonzeros), CSR -> DIA ({len(dia256.offsets)} "
+        f"diagonals) {dia_s:.2f} s")
+    t0 = time.perf_counter()
+    chstep, (chb,) = build_entry("CG", "CHEBYSHEV", a=a256, dia=dia256,
+                                 params={"Convergence Tolerance": RTOL,
+                                         "Maximum Iterations": 3000})
+    torch.cuda.synchronize()
+    ch_setup_s = time.perf_counter() - t0
+    cheb = chstep.preconditioner
+    chres, chms, chlaunch = drive(chstep, (chb,))
+    chiters = int(chres.iters)
+    ch_true = true_residual(chres.x, chb)
+    log(f"build() CG + CHEBYSHEV (degree {cheb.degree}, power-method λmax "
+        f"{cheb.lmax:.6f}, λmin {cheb.lmin:.6f}) on {GRID} DIA f32: set-up "
+        f"{ch_setup_s:.2f} s; converged {bool(chres.converged)} iters "
+        f"{chiters} first solve {chms:.1f} ms launches {chlaunch}; true "
+        f"relative residual (plain operator, f64) {ch_true:.3e}")
+    if not bool(chres.converged) or not ch_true <= RTOL or not chlaunch.get(
+            "dia_spmv"):
+        fail(f"build() CG + CHEBYSHEV: converged {bool(chres.converged)}, "
+             f"true residual {ch_true:.3e}, launches {chlaunch}")
+    chref, chplain_ms = plain_run(chstep, chb)
+    chrel_x, _ = rel_err(chres.x, chref.x)
+    log(f"build() CG + CHEBYSHEV plain reference: iters {int(chref.iters)} "
+        f"solve {chplain_ms:.1f} ms; max|Δx|/max|x| = {chrel_x:.3e}")
+    if abs(int(chref.iters) - chiters) > 1 or not chrel_x <= TOL[
+            torch.float32]:
+        fail(f"build() CG + CHEBYSHEV kernel and plain solves differ: iters "
+             f"{chiters} vs {int(chref.iters)}, x {chrel_x:.3e}")
+    del chref, chres
+    chwarm_ms = warm(chstep, chb)
+    fixed = {"Num Blocks": 30, "Convergence Tolerance": 0.0,
+             "Maximum Iterations": POLY_ITERS}
+    poly_runs = {}
+    for prec in ("GMRESPOLY", "None"):
+        t0 = time.perf_counter()
+        pstep_, (pb_,) = build_entry("GMRES", prec, a=a256, dia=dia256,
+                                     params=fixed)
+        torch.cuda.synchronize()
+        p_setup_s = time.perf_counter() - t0
+        pres_, pms_, plaunch_ = drive(pstep_, (pb_,))
+        p_true = true_residual(pres_.x, pb_)
+        log(f"build() GMRES(30) + {prec} on {GRID} DIA f32, rtol 0: set-up "
+            f"{p_setup_s:.2f} s; iters {pres_.iters} first solve {pms_:.1f} "
+            f"ms launches {plaunch_}; true relative residual (plain "
+            f"operator, f64) {p_true:.3e}")
+        if pres_.iters != POLY_ITERS or not plaunch_.get("dia_spmv"):
+            fail(f"build() GMRES + {prec}: {pres_.iters} iterations, "
+                 f"launches {plaunch_}")
+        poly_runs[prec] = dict(step=pstep_, args=(pb_,), true=p_true,
+                               first=pms_, launches=plaunch_,
+                               warm=warm(pstep_, pb_))
+        del pres_
+    if not poly_runs["GMRESPOLY"]["true"] < poly_runs["None"]["true"]:
+        fail(f"GMRES + GMRESPOLY true residual "
+             f"{poly_runs['GMRESPOLY']['true']:.3e} not below plain GMRES's "
+             f"{poly_runs['None']['true']:.3e}")
+
     # -- 8. timings at the main paths' shapes --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     n0, n1, nd = fine.n_rows_pad, a1.n_rows_pad, len(a1.offsets)
@@ -1456,8 +1736,8 @@ def main():
              plain=lambda: bdia_planes_plain(a3, xp3),
              library=lambda: csr3 @ x3),
     ]
-    # each row's counts come from the path that runs it (CG and block rows
-    # from their own paths)
+    # each of these rows takes its launches from the path that runs it (CG
+    # and block rows from their own paths) and its error from its checks
     launches = {**f_launches, **s_launches, **c_launches, **cg_launches,
                 **b_launches, **e_launches, **p_launches}
     # the plane CG has no preconditioner to mark an iteration: its launches
@@ -1465,6 +1745,89 @@ def main():
     p_per = {"bdia_spmm": p_launches["bdia_spmm"] / PLANE_ITERS}
     per_step = {**f_per, **s_per, **c_per, **cg_per, **b_per, **e_per,
                 **p_per}
+    for r in rows:
+        r.update(launches=launches[r["name"]], per_step=per_step[r["name"]],
+                 err=err[r["name"]])
+    # the ninth slice's shapes, each kernel held to its plain version and
+    # each library call to the plain version first: the 7-diagonal 256³ f32
+    # operator of build() and the 128³ f64 one of config 4 (DIA, k = 1), and
+    # Block GCRODR's k = 4 on the fine grid (stencil SpMM) and level 1 (DIA
+    # SpMM)
+    x256 = randn(dia256.n_rows_pad, torch.float32, seed=36)
+    x4 = randn(c4a.n_rows_pad, torch.float64, seed=37)
+    x0k4 = randn((n0, 4), torch.float32, seed=38)
+    x0b4 = x0k4[:fine.n_rows].T.contiguous()
+    x1k4 = randn((n1, 4), torch.float32, seed=39)
+    conv_k4 = stencil_conv(fine, 4)
+    csr256, csr4 = dia_as_csr(dia256), dia_as_csr(c4a)
+    nd256, nd4 = len(dia256.offsets), len(c4a.offsets)
+    new_err = {
+        "dia256": check(f"dia {GRID} {dia256.n_rows_pad} rows x {nd256} "
+                        "diags f32 (build() operator)", dia_spmv(dia256, x256),
+                        dia_spmv_plain(dia256, x256), TOL[torch.float32]),
+        "dia4": check(f"dia {grid4} {c4a.n_rows_pad} rows x {nd4} diags f64 "
+                      "(config 4)", dia_spmv(c4a, x4), dia_spmv_plain(c4a, x4),
+                      TOL[torch.float64]),
+        "spmm4": check(f"stencil SpMM {GRID} k=4 f32 (Block GCRODR)",
+                       stencil_spmm(fine, x0k4),
+                       stencil_spmv_plain(fine, x0k4), 0.0),
+        "dia_spmm4": check("dia SpMM level-1 k=4 f32 (Block GCRODR)",
+                           dia_spmm(a1, x1k4), dia_spmv_plain(a1, x1k4), 0.0)}
+    check("sparse CSR library call vs dia (build() operator)", csr256 @ x256,
+          dia_spmv_plain(dia256, x256), 1e-5)
+    check("sparse CSR library call vs dia (config 4, f64)", csr4 @ x4,
+          dia_spmv_plain(c4a, x4), 1e-12)
+    check("conv3d batch-of-4 library call vs stencil SpMM",
+          conv_k4(x0b4).reshape(4, -1).T,
+          stencil_spmv_plain(fine, x0k4)[:fine.n_rows], 1e-5)
+    check("sparse CSR @ dense library call vs dia SpMM k=4", csr @ x1k4,
+          dia_spmv_plain(a1, x1k4), 1e-5)
+    gcro = block_runs["Block GCRODR"]
+    rows += [
+        dict(name="dia_spmv", source="dia_spmv.cu",
+             replaces="dia_spmv.py:273", also_replaces="dia_spmv.py:524",
+             shape=f"{GRID}, {dia256.n_rows_pad} rows x {nd256} diags f32 "
+                   "(build() CG + CHEBYSHEV)",
+             bytes=(nd256 + 2) * dia256.n_rows_pad * 4,
+             flops=2 * nonzeros(dia256),
+             kernel=lambda: dia_spmv(dia256, x256),
+             plain=lambda: dia_spmv_plain(dia256, x256),
+             library=lambda: csr256 @ x256, launches=chlaunch["dia_spmv"],
+             per_step=chlaunch["dia_spmv"] / max(chiters, 1),
+             err=new_err["dia256"]),
+        dict(name="dia_spmv", source="dia_spmv.cu",
+             replaces="dia_spmv.py:273", also_replaces="dia_spmv.py:524",
+             shape=f"{grid4}, {c4a.n_rows_pad} rows x {nd4} diags f64 "
+                   "(BASELINE config 4)",
+             bytes=(nd4 + 2) * c4a.n_rows_pad * 8, flops=2 * nonzeros(c4a),
+             flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: dia_spmv(c4a, x4),
+             plain=lambda: dia_spmv_plain(c4a, x4),
+             library=lambda: csr4 @ x4, launches=c4launch["dia_spmv"],
+             per_step=c4launch["dia_spmv"] / max(c4iters, 1),
+             err=new_err["dia4"]),
+        dict(name="stencil_spmm", source="stencil_spmv.cu",
+             replaces="stencil_op.py:654", also_replaces=None,
+             shape=f"{GRID} x k=4 f32, Block GCRODR (library: conv3d on a "
+                   f"(4, 1, {', '.join(map(str, DIMS[::-1]))}) batch)",
+             bytes=2 * n0 * 4 * 4, flops=2 * fine.nnz * 4,
+             kernel=lambda: stencil_spmm(fine, x0k4),
+             plain=lambda: stencil_spmv_plain(fine, x0k4),
+             library=lambda: conv_k4(x0b4),
+             launches=gcro["spmm_by_k"].get(4, 0),
+             per_step=gcro["spmm_by_k"].get(4, 0) / max(gcro["iters"], 1),
+             err=new_err["spmm4"]),
+        dict(name="dia_spmm", source="dia_spmv.cu",
+             replaces="dia_spmv.py:273", also_replaces="dia_spmv.py:430",
+             shape=f"level 1, {n1} rows x {nd} diags x k=4 f32, Block GCRODR",
+             bytes=(nd + 2 * 4) * n1 * 4, flops=2 * nnz1 * 4,
+             kernel=lambda: dia_spmm(a1, x1k4),
+             plain=lambda: dia_spmv_plain(a1, x1k4),
+             library=lambda: csr @ x1k4,
+             launches=gcro["dia_by_k"].get((n1, 4), 0),
+             per_step=gcro["dia_by_k"].get((n1, 4), 0) / max(gcro["iters"],
+                                                             1),
+             err=new_err["dia_spmm4"])]
     # fused kernels the polynomial wrappers launched on their own paths
     fused_launches = {"stencil_poly": c_fused, "stencil_powers": s_fused}
     # the empty kernel and chol_inv_small at the block path's k and at 32:
@@ -1491,7 +1854,7 @@ def main():
         plain_ms = graph_ms(r["plain"])
         library_ms = graph_ms(r["library"]) if r["library"] else None
         by_bytes = r["bytes"] / HBM_BYTES_PER_MS
-        by_ops = r["flops"] / F32_FLOPS_PER_MS
+        by_ops = r["flops"] / r.get("flops_per_ms", F32_FLOPS_PER_MS)
         pkg = "smalldense.py" if r["name"] == "chol_inv_small" else None
         site = ("trilinos_tpu/ops/" if pkg else "trilinos_tpu/ops/pallas/")
         entry_ = dict(
@@ -1500,9 +1863,10 @@ def main():
             replaces=site + r["replaces"],
             also_replaces=(site + r["also_replaces"]
                            if r["also_replaces"] else None),
-            shape=r["shape"], launches=launches[r["name"]],
-            launches_per_step=per_step[r["name"]],
-            max_abs_err=err[r["name"]], ms=kernel_ms, kernel_ms=kernel_ms,
+            shape=r["shape"],
+            launches=r["launches"], launches_per_step=r["per_step"],
+            max_abs_err=r["err"],
+            ms=kernel_ms, kernel_ms=kernel_ms,
             host_path_ms=host_ms, plain_ms=plain_ms,
             bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
@@ -1655,6 +2019,32 @@ def main():
             f"{k} {it} iters {ms:.1f} ms" for k, (it, ms, _) in
             c2_variants.items()))
 
+    for name, run in fk_runs.items():
+        log(f"factory {name!r} solve: {run['warm']:.2f} ms wall, "
+            f"{run['warm'] / max(run['iters'], 1):.3f} ms/iter over "
+            f"{run['iters']} iterations (first solve {run['first']:.1f} ms); "
+            f"launches {run['launches']}")
+    for name, run in block_runs.items():
+        log(f"factory {name!r} solve: {run['warm']:.2f} ms wall, "
+            f"{run['warm'] / max(run['iters'], 1):.3f} ms/iter over "
+            f"{run['iters']} iterations (first solve {run['first']:.1f} ms"
+            + (f"; plain versions {run['plain']:.1f} ms" if "plain" in run
+               else "") + f"); launches {run['launches']}")
+    log(f"BASELINE config 4 solve ({grid4}, f64): {c4warm_ms:.2f} ms wall, "
+        f"{c4warm_ms / max(c4iters, 1):.4f} ms/iter over {c4iters} "
+        f"iterations (first solve {c4ms:.1f} ms; plain versions "
+        f"{c4plain_ms:.1f} ms); launches {c4launch}")
+    log(f"build() CG + CHEBYSHEV solve ({GRID}, f32): {chwarm_ms:.2f} ms "
+        f"wall, {chwarm_ms / max(chiters, 1):.3f} ms/iter over {chiters} "
+        f"iterations (first solve {chms:.1f} ms; plain versions "
+        f"{chplain_ms:.1f} ms); launches {chlaunch}")
+    for prec, run in poly_runs.items():
+        log(f"build() GMRES(30) + {prec} solve ({GRID}, f32, {POLY_ITERS} "
+            f"iterations): {run['warm']:.2f} ms wall, "
+            f"{run['warm'] / POLY_ITERS:.3f} ms/iter (first solve "
+            f"{run['first']:.1f} ms); launches {run['launches']}; true "
+            f"relative residual {run['true']:.3e}")
+
     # -- 9. one solve of each path under the profiler: device time by kernel
     # (last, so that it cannot disturb the timings above)
     profile("CG solve", lambda: step(b, state), focus="stencil_kernel")
@@ -1671,7 +2061,15 @@ def main():
     profile("AMG-GMRES(30) solve", lambda: astep(ab, ast),
             focus="stencil_kernel")
     profile("BASELINE config 2 solve", lambda: c2step(c2b))
+    profile("BASELINE config 4 (pipelined CG) solve", lambda: c4step(c4b),
+            focus="dia_kernel")
+    bcg = block_runs["Block CG"]
+    profile("factory Block CG solve", lambda: bcg["step"](*bcg["args"]))
+    gc = fk_runs["GCRODR"]
+    profile("factory GCRODR solve (recycled space)",
+            lambda: gc["step"](*gc["args"]))
 
+    log(f"chip_smoke total: {time.perf_counter() - t_main:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

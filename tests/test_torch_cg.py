@@ -88,10 +88,34 @@ def test_multivector_columns_match_jax():
 
 
 @pytest.mark.parametrize("opt", [dict(condest_window=5), dict(history=True),
-                                 dict(stop=object()),
+                                 dict(stop="never"),
                                  dict(compensated=True)])
 def test_unported_options_raise(opt):
+    """These options raised until they were ported (hence the name); now
+    each runs, and a solve with it, whose stop test never passes, takes the
+    plain solve's iterations and x (1e-10), in both packages."""
+    a = j_laplace2d(8, 8)
+    jdev = jF.csr_to_dia(a, dtype=np.float64)
     dev = csr_to_dia(laplace2d(8, 8), device="cpu")
-    b = torch.from_numpy(rhs(dev.n_rows_pad, 64, seed=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cg(lambda x: spmv(dev, x), b, **opt)
+    b = rhs(dev.n_rows_pad, 64, seed=4)
+    if "stop" in opt:
+        from trilinos_tpu.solvers import status as jstatus
+        from trilinos_tpu_torch.solvers import status as tstatus
+
+        jopt = dict(stop=jstatus.max_iters(10**6))
+        topt = dict(stop=tstatus.max_iters(10**6))
+    else:
+        jopt = topt = opt
+    plain = cg(lambda x: spmv(dev, x), torch.from_numpy(b))
+    res = cg(lambda x: spmv(dev, x), torch.from_numpy(b), **topt)
+    jres = j_cg(lambda x: jmv.spmv(jdev, x, impl="xla"), jnp.asarray(b),
+                **jopt)
+    assert res.iters == plain.iters == int(jres.iters)
+    assert rel(res.x.numpy(), plain.x.numpy()) <= 1e-10
+    assert rel(res.x.numpy(), jres.x) <= 1e-10
+    if "condest_window" in opt:
+        assert abs(float(res.condest) - float(jres.condest)) <= 1e-10 * float(
+            jres.condest)
+    if "history" in opt:
+        np.testing.assert_array_equal(np.isnan(res.history.numpy()),
+                                      np.isnan(np.asarray(jres.history)))

@@ -246,7 +246,18 @@ def test_port_imports_no_jax():
             "trilinos_tpu_torch/solvers/gmres.py",
             "trilinos_tpu_torch/solvers/gmres_ca.py",
             "trilinos_tpu_torch/solvers/status.py",
-            "trilinos_tpu_torch/solvers/linear_problem.py"} <= names
+            "trilinos_tpu_torch/solvers/linear_problem.py",
+            "trilinos_tpu_torch/solvers/bicgstab.py",
+            "trilinos_tpu_torch/solvers/tfqmr.py",
+            "trilinos_tpu_torch/solvers/minres.py",
+            "trilinos_tpu_torch/solvers/lsqr.py",
+            "trilinos_tpu_torch/solvers/block_cg.py",
+            "trilinos_tpu_torch/solvers/rcg.py",
+            "trilinos_tpu_torch/solvers/gcrodr.py",
+            "trilinos_tpu_torch/solvers/block_gcrodr.py",
+            "trilinos_tpu_torch/solvers/factory.py",
+            "trilinos_tpu_torch/precond/poly.py",
+            "trilinos_tpu_torch/utils/output.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

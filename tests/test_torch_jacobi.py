@@ -96,7 +96,8 @@ def test_block_jacobi_matches_jax(bs):
 
 
 PORTED = ["JACOBI", "Relaxation", "block_jacobi", "SA-AMG", "AMG", "MueLu"]
-NOT_PORTED = ["CHEBYSHEV", "RILUK", "ILUT", "GMRESPOLY", "SCHWARZ",
+# CHEBYSHEV and GMRESPOLY are ported now (tests/test_torch_poly_cheb.py)
+NOT_PORTED = ["ILU", "RILUK", "ILUT", "GDSW", "SCHWARZ",
               "Hiptmair", "KLU2", "MT GAUSS-SEIDEL", "TRIDI"]
 
 

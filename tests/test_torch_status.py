@@ -1,7 +1,7 @@
 """The port's status tests and residual history against the JAX package's.
 
-Twins of ``tests/test_status.py`` on GMRES (the port's ``cg`` does not take
-``stop``/``history`` yet and says so): a max-iterations stop, a loose
+Twins of ``tests/test_status.py`` on GMRES (and on ``cg``, whose options
+``tests/test_torch_cg_options.py`` twins in full): a max-iterations stop, a loose
 composable resnorm stop, OR combos and ``standard_stop`` give the JAX
 package's iteration counts and x (1e-9); the multivector history has the
 (maxiter + restart + 1, k) shape, ‖b‖ first and the JAX trace's values
@@ -119,12 +119,23 @@ def test_status_functions_match_jax():
 
 
 def test_cg_says_only_the_wiring_is_left(rng):
-    b = torch.from_numpy(rng.standard_normal(A.shape[0]))
-    for kw in (dict(stop=tstatus.max_iters(5)), dict(history=True),
-               dict(condest_window=30), dict(compensated=True)):
-        with pytest.raises(NotImplementedError,
-                           match="only the cg wiring is left"):
-            t_cg(top, b, **kw)
+    """The cg wiring was what was left (hence the name); it is done: each
+    option now runs on cg as on the JAX package's."""
+    from trilinos_tpu.solvers import cg as j_cg
+
+    b = rng.standard_normal(A.shape[0])
+    for jkw, tkw in ((dict(stop=jstatus.max_iters(5)),
+                      dict(stop=tstatus.max_iters(5))),
+                     (dict(history=True),) * 2,
+                     (dict(condest_window=30),) * 2,
+                     (dict(compensated=True),) * 2):
+        jr = j_cg(jop, jnp.asarray(b), **jkw)
+        tr = t_cg(top, torch.from_numpy(b), **tkw)
+        assert tr.iters == int(jr.iters)
+        assert np.abs(tr.x.numpy() - np.asarray(jr.x)).max() <= 1e-9 * \
+            np.abs(np.asarray(jr.x)).max()
+    assert tr.iters > 5 and t_cg(top, torch.from_numpy(b),
+                                 stop=tstatus.max_iters(5)).iters == 5
 
 
 def test_linear_problem_composition(rng):

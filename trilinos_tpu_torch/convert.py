@@ -19,6 +19,9 @@ from .ops.formats import (BdiaMatrix, BsrMatrix, CsrHost, DiaMatrix,
 from .ops.stencil_op import StencilOp
 from .precond.amg import structured_block
 from .precond.jacobi import Relaxation
+from .precond.poly import GmresPoly
+from .solvers.gcrodr import RecycleSpace
+from .solvers.rcg import CgRecycleSpace
 
 
 def _to_device(arr, device) -> torch.Tensor:
@@ -156,3 +159,33 @@ def block_amg_state_from_jax(np_state: dict, device=None) -> dict:
             "q": _to_device(s["q"], device)})
     return {"levels": levels,
             "coarse_inv": _to_device(np_state["coarse_inv"], device)}
+
+
+def recycle_space_from_numpy(u, c, device=None) -> RecycleSpace:
+    """A GCRO-DR ``RecycleSpace`` (U, C = A U with CᵀC = I) from the JAX
+    package's ``u`` and ``c`` arrays; None arrays give an empty space."""
+    if u is None:
+        return RecycleSpace()
+    return RecycleSpace(_to_device(u, device), _to_device(c, device))
+
+
+def cg_recycle_space_from_numpy(u, device=None) -> CgRecycleSpace:
+    """An RCG ``CgRecycleSpace`` from the JAX package's ``u``: ``rcg`` maps
+    a given space onto its operator again (A U and (UᵀAU)⁻¹), so U alone
+    carries it."""
+    if u is None:
+        return CgRecycleSpace()
+    return CgRecycleSpace(_to_device(u, device))
+
+
+def gmres_poly_from_numpy(a: CsrHost, h, y, degree: int, params=None,
+                          device=None) -> GmresPoly:
+    """A computed port ``GmresPoly`` on host matrix ``a`` whose polynomial
+    is the given Hessenberg ``h``, coefficients ``y`` and degree (the JAX
+    one's ``h``, ``y`` and ``degree``); ``a`` is packed with
+    ``choose_format`` as ``compute()`` packs it, in the ``"dtype"``
+    parameter's type."""
+    m = GmresPoly(a, params, device=device).initialize()
+    m.set_state(np.asarray(h, np.float64), np.asarray(y, np.float64),
+                int(degree))
+    return m

@@ -52,6 +52,30 @@ fixed ``iters`` iterations (rtol 0), the JAX bench's plane-layout solve;
 already packed operator may be passed as ``a=``; grid, dtype and device
 then come from it.
 
+``factory_entry(name)``: the named solver kind through the factory,
+``create_solver(name, params).solve(LinearProblem(...))``, on the
+matrix-free Laplace3D stencil, preconditioned by the structured hierarchy
+(``apply_state``); LSQR takes no preconditioner and gets the transposed
+stencil as ``op_t``. One manager serves every call of ``step(b, state)``
+(state None for LSQR), so the recycling kinds (GCRODR, Block GCRODR, RCG)
+reuse the previous solve's space; it is ``step.manager``. ``nrhs`` gives
+a block of right-hand sides.
+
+``pipelined_cg_entry()``: BASELINE config 4 on one card, "Laplace3D 128³,
+pipelined CG": Galeri Laplace3D stored through ``choose_format`` (DIA, 7
+diagonals), float64, unpreconditioned ``cg_pipeline`` at rtol 1e-8 on a
+seed-3 normal right-hand side (the JAX package's BASELINE test);
+``step(b)``, with the stored matrix as ``step.matrix``.
+
+``build_entry()``: the Stratimikos path. ``build()`` takes the solver and
+preconditioner names and their parameter lists and returns a manager and
+a computed preconditioner for Galeri Laplace3D (host CSR, float32); the
+operator is the same matrix stored as DIA. ``params`` are the solver's;
+CHEBYSHEV takes degree 3, any other preconditioner its defaults. An
+already assembled host matrix may be passed as ``a=`` and its stored form
+as ``dia=``; ``step(b)``, with ``step.manager`` and
+``step.preconditioner``.
+
 Every entry takes ``device`` (``None`` means the CUDA card and raises
 without one); the hierarchy paths also take an already-built hierarchy as
 ``amg=`` so one hierarchy can serve several paths, and their grid, dtype
@@ -68,10 +92,11 @@ import torch
 from .device import resolve_device, torch_dtype
 from .galeri import elasticity3d, laplace3d, rigid_body_modes
 from .ops.bdia_spmv import bdia_plane_solver_op
-from .ops.formats import csr_to_bdia, csr_to_bsr
+from .ops.formats import choose_format, csr_to_bdia, csr_to_bsr
 from .ops.matvec import spmv
 from .precond import BlockStructuredAmg, Relaxation, SaAmg
-from .solvers import (block_gmres, cg, cg_fused, fgmres, gmres,
+from .solvers import (LinearProblem, block_gmres, build, cg, cg_fused,
+                      cg_pipeline, create_solver, fgmres, gmres,
                       gmres_pipeline, gmres_single_reduce, sstep_gmres)
 
 
@@ -225,3 +250,67 @@ def bdia_cg_entry(dims=(8, 8, 8), iters=400, dtype=np.float32, device=None,
         return dataclasses.replace(res, x=unpack(res.x))
 
     return step, (_rhs(a, a.data.device, a.dtype),)
+
+
+def factory_entry(name, params=None, dims=(16, 16, 16), nrhs=None,
+                  dtype=np.float32, device=None, amg=None):
+    mgr = create_solver(name, params)
+    if mgr.kind == "lsqr":
+        if amg is None:
+            op, dev = laplace3d(*dims, dtype=dtype, fmt="stencil"), \
+                resolve_device(device)
+        else:
+            op, dev = amg.fine_op, amg.device
+        m, st, dt = None, None, torch_dtype(dtype if amg is None
+                                            else amg.dtype)
+    else:
+        op, m = _hierarchy(dims, dtype, device, amg)
+        dev, st, dt = m.device, m.state(), m.dtype
+
+    def step(b_vec: torch.Tensor, st):
+        problem = LinearProblem(lambda v: spmv(op, v), b_vec)
+        if st is None:
+            problem.op_t = lambda v: spmv(op, v, transpose=True)
+        else:
+            problem.right_prec = lambda v: m.apply_state(st, v)
+        return mgr.solve(problem)
+
+    step.manager = mgr
+    return step, (_rhs(op, dev, dt, nrhs), st)
+
+
+def pipelined_cg_entry(dims=(128, 128, 128), device=None):
+    a = laplace3d(*dims)
+    dia = choose_format(a, device=resolve_device(device))
+    n, npad = a.shape[0], dia.n_rows_pad
+
+    def step(b_vec: torch.Tensor):
+        return cg_pipeline(lambda v: spmv(dia, v), b_vec, rtol=1e-8)
+
+    step.matrix = dia
+    host = np.zeros(npad)
+    host[:n] = np.random.default_rng(3).standard_normal(n)
+    return step, (torch.from_numpy(host).to(dia.data.device),)
+
+
+def build_entry(solver="CG", prec="CHEBYSHEV", dims=(256, 256, 256),
+                params=None, device=None, a=None, dia=None):
+    dev = resolve_device(device)
+    if a is None:
+        a = laplace3d(*dims, dtype=np.float32)
+    prec_params = ({"chebyshev: degree": 3}
+                   if prec.strip().upper() == "CHEBYSHEV" else {})
+    mgr, m = build({"Linear Solver Type": solver,
+                    "Solver Types": {solver: dict(params or {})},
+                    "Preconditioner Type": prec,
+                    "Preconditioner Types": {prec: prec_params}},
+                   a, device=dev)
+    if dia is None:
+        dia = choose_format(a, device=dev)
+
+    def step(b_vec: torch.Tensor):
+        return mgr.solve(LinearProblem(lambda v: spmv(dia, v), b_vec,
+                                       right_prec=m))
+
+    step.manager, step.preconditioner = mgr, m
+    return step, (_rhs(dia, dev, dia.dtype),)

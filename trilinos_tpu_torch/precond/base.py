@@ -17,7 +17,6 @@ from ..utils.params import ParameterList, make_params
 # names of the reference's table whose classes are not ported yet, with the
 # ROADMAP queue 1 item that holds each
 _LATER = {
-    "CHEBYSHEV": 5, "GMRESPOLY": 5, "POLY": 5,
     "RILUK": 7, "RBILUK": 7, "ILU": 7, "ILU(0)": 7, "ILUT": 7,
     "BLOCK RELAXATION": 7, "TRIDI": 7, "BANDED RELAXATION": 7,
     "DATABASE SCHWARZ": 7, "MT GAUSS-SEIDEL": 7, "GAUSS-SEIDEL": 7,
@@ -74,12 +73,17 @@ def create(name: str, a, params: ParameterList | dict | None = None,
     reference's factory strings, case-insensitive."""
     from .amg import SaAmg
     from .block_amg import BlockStructuredAmg
+    from .chebyshev import Chebyshev
     from .jacobi import BlockJacobi, Relaxation
+    from .poly import GmresPoly
 
     key = name.strip().upper()
     table = {
         "JACOBI": Relaxation,
         "RELAXATION": Relaxation,
+        "CHEBYSHEV": Chebyshev,
+        "GMRESPOLY": GmresPoly,
+        "POLY": GmresPoly,
         "BLOCK_JACOBI": BlockJacobi,
         "SA-AMG": SaAmg,
         "BLOCK SA-AMG": BlockStructuredAmg,

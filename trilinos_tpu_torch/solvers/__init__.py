@@ -1,11 +1,26 @@
-from .base import SolveResult
+from .base import Operator, SolveResult, identity_prec
+from .bicgstab import bicgstab
+from .block_cg import block_cg
+from .block_gcrodr import block_gcrodr
 from .block_gmres import block_gmres
-from .cg import cg, cg_fused, cg_single_reduce
+from .cg import cg, cg_fused, cg_pipeline, cg_single_reduce, stochastic_cg
+from .gcrodr import RecycleSpace, gcrodr
 from .gmres import fgmres, gmres
 from .gmres_ca import gmres_pipeline, gmres_single_reduce
 from .linear_problem import LinearProblem
+from .lsqr import fixed_point, lsqr
+from .minres import minres
+from .rcg import CgRecycleSpace, pcpg, rcg
 from .sstep_gmres import sstep_gmres
+from .tfqmr import tfqmr
+from .factory import SolverManager, build, create_solver, solver_names
+from . import ortho, status
 
-__all__ = ["LinearProblem", "SolveResult", "block_gmres", "cg", "cg_fused",
-           "cg_single_reduce", "fgmres", "gmres", "gmres_pipeline",
-           "gmres_single_reduce", "sstep_gmres"]
+__all__ = ["CgRecycleSpace", "LinearProblem", "Operator", "RecycleSpace",
+           "SolveResult", "SolverManager", "bicgstab", "block_cg",
+           "block_gcrodr", "block_gmres", "build", "cg", "cg_fused",
+           "cg_pipeline", "cg_single_reduce", "create_solver", "fgmres",
+           "fixed_point", "gcrodr", "gmres", "gmres_pipeline",
+           "gmres_single_reduce", "identity_prec", "lsqr", "minres",
+           "ortho", "pcpg", "rcg", "solver_names", "sstep_gmres", "status",
+           "stochastic_cg", "tfqmr"]

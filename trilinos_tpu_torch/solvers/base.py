@@ -61,7 +61,8 @@ def rhs_norm_scale(bnorm: torch.Tensor, rtol, atol) -> torch.Tensor:
     return rtol * scale + atol
 
 
-def certified_solve(solve_from, op, b, x0, tol, maxiter, comm):
+def certified_solve(solve_from, op, b, x0, tol, maxiter, comm, aux0=None,
+                    halt=None):
     """Run a solver loop, certify with an explicit residual, and when the
     recurrence undershoots (f32 drift), resume with a 16x tightened loop
     threshold until the certified residual passes, ``maxiter`` is spent, or
@@ -70,19 +71,34 @@ def certified_solve(solve_from, op, b, x0, tol, maxiter, comm):
 
     solve_from(x, tol2_loop, k0) -> (x, k) continues the iteration from x;
     k counts cumulative iterations. Returns (x, k, resnorm, converged).
+
+    aux0: optional auxiliary state threaded through the passes; solve_from
+    is then called as (x, tol2, k0, aux) -> (x, k, aux) and the final aux
+    is returned fifth (CG records its Lanczos coefficients and residual
+    history in it). halt: optional predicate (k, rr) -> bool, rr the
+    squared certified residual; True after a pass means the solve ended for
+    a reason tightening cannot cure (a user status test fired), so no
+    further pass runs.
     """
     tol2 = tol * tol
     t2 = tol2 * torch.ones_like(tol)
     rr = torch.full_like(t2, float("inf"))
-    x, k, tries = x0, 0, 0
+    x, k, tries, aux = x0, 0, 0, aux0
     while k < maxiter and tries < MAX_TRIES and bool((rr > tol2).any()):
-        x, k = solve_from(x, t2, k)
+        if tries > 0 and halt is not None and bool(halt(k, rr)):
+            break
+        if aux0 is None:
+            x, k = solve_from(x, t2, k)
+        else:
+            x, k, aux = solve_from(x, t2, k, aux)
         t2 = t2 * TIGHTEN
         r = b - op(x)
         rr = comm.psum(local_dot(r, r))
         tries += 1
     resnorm = torch.sqrt(rr)
-    return x, k, resnorm, resnorm <= tol
+    if aux0 is None:
+        return x, k, resnorm, resnorm <= tol
+    return x, k, resnorm, resnorm <= tol, aux
 
 
 def certify_residual(op: Operator, b: torch.Tensor, x: torch.Tensor, tol,

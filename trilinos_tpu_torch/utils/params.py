@@ -1,9 +1,10 @@
 """Hierarchical, validated parameter lists.
 
 Counterpart of ``trilinos_tpu/utils/params.py`` (the part of it the
-ported preconditioners use), the analogue of ``Teuchos::ParameterList``:
-string keys with ``Param`` specs and eager validation, whose strict mode
-catches misspelt keys.
+ported preconditioners and the solver factory use), the analogue of
+``Teuchos::ParameterList``: string keys with ``Param`` specs, eager
+validation whose strict mode catches misspelt keys, sublists and
+recorded defaults.
 """
 from __future__ import annotations
 
@@ -56,16 +57,35 @@ class ParameterList:
     def __repr__(self) -> str:
         return f"ParameterList({self.name!r}, {self._data!r})"
 
+    def get(self, key: str, default: Any = None) -> Any:
+        """``key``'s value; if absent, the default is stored and returned
+        (``ParameterList::get(name, default)``)."""
+        if key not in self._data:
+            self._data[key] = default
+        return self._data[key]
+
+    def sublist(self, key: str) -> "ParameterList":
+        """The sublist ``key``, created empty if absent."""
+        if key not in self._data:
+            self._data[key] = ParameterList(name=key)
+        sub = self._data[key]
+        if not isinstance(sub, ParameterList):
+            raise TypeError(f"parameter {key!r} is not a sublist")
+        return sub
+
     # -- validation --------------------------------------------------------
-    def validate(self, specs: Mapping[str, Param]) -> None:
-        """Check values and fill defaults; unknown top-level keys raise
-        (catches typos). Analogue of ``validateParametersAndSetDefaults``.
+    def validate(self, specs: Mapping[str, Param], strict: bool = True) -> None:
+        """Check values and fill defaults; with ``strict`` unknown top-level
+        keys raise (catches typos). Analogue of
+        ``validateParametersAndSetDefaults``.
         """
         for name, spec in specs.items():
             if name in self._data:
                 spec.check(self._data[name])
             else:
                 self._data[name] = spec.default
+        if not strict:
+            return
         unknown = [k for k in self._data
                    if k not in specs
                    and not isinstance(self._data[k], ParameterList)]
