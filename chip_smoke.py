@@ -65,6 +65,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -125,6 +126,53 @@ CONFIG4_CPU_ITERS = 447  # unpreconditioned CG on this problem, CPU, f64
 # kernel and plain config-4 solves may part only by rounding
 CONFIG4_X_TOL = 1e-8
 F64_FLOPS_PER_MS = 34e12 / 1e3  # H100 SXM float64 outside the tensor cores
+# the stored-matrix path. BASELINE config 3's twin: Galeri recirc2d 128²
+# (16,384 rows, default diffusion) through a Matrix Market file, ELL, Ilu0
+# with 20 sweeps, DGKS block GMRES (nrhs 2, 60 blocks, 20 restarts, f64)
+CONFIG3_NX = 128
+CONFIG3_CPU_STEPS = 649  # the JAX package on the CPU, f64
+CONFIG3_STEPS_TOL = 0.05  # kernel-run block steps within 5% of that count
+CONFIG3_TRUE_MAX = 1e-6  # every column's true residual (the JAX test's)
+UAMG_DIMS = (128, 128, 128)  # uncoupled SA-AMG PCG on a stored Laplace3D
+UAMG_X_TOL = 1e-4  # kernel and plain f32 solves stop at rtol 1e-5
+NS_MAXITER = 400  # null-space uncoupled SA-AMG PCG on the elasticity matrix
+MAXWELL_DIMS = (128, 128)  # HIPTMAIR's curl-curl problem, 33,024 edges
+# every preconditioner name this slice ports, through build() with GMRES(30)
+# at rtol 1e-8, maxiter 1000, f64, on the config-3 matrix (HIPTMAIR on
+# maxwell2d with conductivity 10^U(-3, 0), seed 9): (label, name,
+# parameters, GMRES iterations of the JAX package on the CPU in f64 from
+# scripts/stored_path_cpu_counts.py). The convection-dominated matrix needs
+# more than the defaults: fixed-sweep ILU 20-80 sweeps, block relaxation on
+# grid lines with 20 sweeps, Gauss-Seidel 20 symmetric sweeps; HIPTMAIR's
+# edge smoother needs a damping below 2 / λmax(D⁻¹A) ≈ 0.67.
+BUILD_CASES = [
+    ("RILUK level 0", "RILUK", {"fact: sweeps": 80}, 707),
+    ("RILUK level 1", "RILUK", {"fact: iluk level-of-fill": 1,
+                                "fact: sweeps": 20}, 729),
+    ("ILUT", "ILUT", {"fact: sweeps": 20}, 391),
+    ("BLOCK RELAXATION Dense", "BLOCK RELAXATION",
+     {"partitioner: block size": 128, "relaxation: sweeps": 20}, 266),
+    ("TRIDI", "TRIDI", {"relaxation: container": "TriDi",
+                        "partitioner: block size": 128,
+                        "relaxation: sweeps": 20}, 266),
+    ("BANDED RELAXATION", "BANDED RELAXATION",
+     {"relaxation: container": "Banded", "partitioner: block size": 128,
+      "banded: bandwidth": 2, "relaxation: sweeps": 20}, 266),
+    ("BLOCK RELAXATION SparseILU0", "BLOCK RELAXATION",
+     {"relaxation: container": "SparseILU0", "partitioner: block size": 1024,
+      "relaxation: sweeps": 10}, 136),
+    ("DATABASE SCHWARZ", "DATABASE SCHWARZ",
+     {"relaxation: container": "Database", "partitioner: block size": 128,
+      "relaxation: sweeps": 20}, 266),
+    ("MT GAUSS-SEIDEL", "MT GAUSS-SEIDEL",
+     {"relaxation: sweeps": 20, "relaxation: symmetric": True}, 200),
+    ("SCHWARZ restricted", "SCHWARZ", {"schwarz: num subdomains": 16}, 874),
+    ("ADDITIVE SCHWARZ add", "ADDITIVE SCHWARZ",
+     {"schwarz: num subdomains": 16, "schwarz: combine mode": "add"}, 872),
+    ("HIPTMAIR", "HIPTMAIR", {"hiptmair: aux preconditioner": "SA-AMG",
+                              "hiptmair: damping factor": 0.4}, 60),
+]
+BUILD_RTOL = 1e-8
 BATCH, SAMPLES = 10, 25
 
 
@@ -373,12 +421,16 @@ def main():
                                           cheb_entry, elasticity_entry,
                                           entry, factory_entry,
                                           fused_cg_entry, gmres_entry,
-                                          pipelined_cg_entry, sstep_entry)
+                                          mm_block_gmres_entry,
+                                          pipelined_cg_entry, sstep_entry,
+                                          uncoupled_amg_entry)
     from trilinos_tpu_torch.galeri import (elasticity2d, elasticity3d,
-                                           laplace3d, rigid_body_modes)
+                                           laplace3d, recirc2d,
+                                           rigid_body_modes)
     from trilinos_tpu_torch.galeri.stencils import (cross3d_stencil,
+                                                    maxwell2d,
                                                     star2d_stencil)
-    from trilinos_tpu_torch.ops import (BdiaMatrix, StencilOp,
+    from trilinos_tpu_torch.ops import (BdiaMatrix, DiaMatrix, StencilOp,
                                         bdia_planes_plain, bdia_spmm,
                                         bdia_spmv, bdia_spmv_plain,
                                         cg_fused_iteration,
@@ -391,7 +443,7 @@ def main():
                                         stencil_powers_plain, stencil_spmm,
                                         stencil_spmv, stencil_spmv_plain)
     from trilinos_tpu_torch.ops import (_build, choose_format, csr_to_bdia,
-                                        matvec, pack_planes, smalldense,
+                                        csr_to_ell, matvec, pack_planes, smalldense,
                                         spgemm, stencil_op)
     from trilinos_tpu_torch.ops.stencil_poly import (monomial_stages,
                                                      stencil_chebyshev_setup)
@@ -406,6 +458,9 @@ def main():
     cheb_mod = importlib.import_module("trilinos_tpu_torch.precond.chebyshev")
     bdia_mod = importlib.import_module("trilinos_tpu_torch.ops.bdia_spmv")
     dia_mod = importlib.import_module("trilinos_tpu_torch.ops.dia_spmv")
+    cg_solve = cg_mod.cg
+    mm_mod = importlib.import_module("trilinos_tpu_torch.io.matrix_market")
+    ilu_mod = importlib.import_module("trilinos_tpu_torch.precond.ilu")
 
     cg_kernels = {"stencil_spmv": stencil_spmv, "dia_spmv": dia_spmv}
     block_kernels = {"stencil_spmm": stencil_spmm, "dia_spmm": dia_spmm,
@@ -453,10 +508,10 @@ def main():
         f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
     t0 = time.perf_counter()
     lib = native.build()
-    log(f"native SpGEMM build (g++): {time.perf_counter() - t0:.2f} s -> "
-        f"{lib}")
+    log(f"native host library build (g++: SpGEMM, Matrix Market reader, "
+        f"ILU(0), ILUT, ILU(k)): {time.perf_counter() - t0:.2f} s -> {lib}")
     if lib is None:
-        fail("no g++: the native SpGEMM cannot be built")
+        fail("no g++: the native host library cannot be built")
     for name in _build.KERNELS:
         report = (_build.BUILD_DIR / f"{name}.log")
         if report.exists():
@@ -1604,6 +1659,204 @@ def main():
              f"{poly_runs['GMRESPOLY']['true']:.3e} not below plain GMRES's "
              f"{poly_runs['None']['true']:.3e}")
 
+    # -- 7n. the stored-matrix path: BASELINE config 3 through Matrix Market
+    # (recirc2d written and read back by the native reader, ELL, Ilu0 with 20
+    # sweeps on DIA factors, DGKS block GMRES nrhs 2, f64)
+    grid3 = f"{CONFIG3_NX}x{CONFIG3_NX}"
+    a3h = recirc2d(CONFIG3_NX, CONFIG3_NX)
+    mm_mod.read_sparse.native_calls = mm_mod.read_sparse.python_calls = 0
+    ilu_mod.ilu0_factor.native_calls = ilu_mod.ilu0_factor.python_calls = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        mtx = pathlib.Path(tmp) / f"recirc2d_{CONFIG3_NX}.mtx"
+        t0 = time.perf_counter()
+        c3step, (c3b,) = mm_block_gmres_entry(CONFIG3_NX, device="cuda",
+                                              path=mtx)
+        torch.cuda.synchronize()
+        c3_setup_s = time.perf_counter() - t0
+        mtx_bytes = mtx.stat().st_size
+    back = c3step.matrix
+    same = (back.shape == a3h.shape
+            and all(np.array_equal(getattr(back, f), getattr(a3h, f))
+                    for f in ("row_ptr", "cols", "vals")))
+    reads = (mm_mod.read_sparse.native_calls, mm_mod.read_sparse.python_calls)
+    facts = (ilu_mod.ilu0_factor.native_calls,
+             ilu_mod.ilu0_factor.python_calls)
+    ilu3 = c3step.preconditioner
+    log(f"Matrix Market round trip, recirc2d {grid3} ({a3h.nnz} nonzeros, "
+        f"{mtx_bytes} bytes): CSR read back bitwise the one written {same}; "
+        f"reader native {reads[0]}, Python {reads[1]}; ILU(0) native "
+        f"{facts[0]}, Python {facts[1]}; factors L "
+        f"{type(ilu3._l).__name__} {len(getattr(ilu3._l, 'offsets', ()))} "
+        f"diags, U {type(ilu3._u).__name__} "
+        f"{len(getattr(ilu3._u, 'offsets', ()))} diags; set-up (write, read, "
+        f"ELL, ILU) {c3_setup_s:.2f} s")
+    if not same or reads != (1, 0) or facts != (1, 0):
+        fail(f"Matrix Market round trip: bitwise {same}, reader paths "
+             f"{reads}, ILU(0) paths {facts}")
+    if not (isinstance(ilu3._l, DiaMatrix) and isinstance(ilu3._u,
+                                                          DiaMatrix)):
+        fail("config 3: the ILU factors are not DIA")
+    c3csr = csr_f64(a3h)
+
+    def c3_true(x):
+        return [host_residual(c3csr, x[:, c].contiguous(),
+                              c3b[:, c].contiguous()) for c in range(2)]
+
+    c3res, c3ms, c3launch = drive(c3step, (c3b,))
+    c3steps = int(c3res.iters)
+    c3_res = c3_true(c3res.x)
+    c3_off = abs(c3steps - CONFIG3_CPU_STEPS) / CONFIG3_CPU_STEPS
+    log(f"BASELINE config 3 (recirc2d {grid3}, ELL, ILU(0) 20 sweeps, DGKS "
+        f"block GMRES, nrhs 2, f64, rtol 1e-8): converged "
+        f"{c3res.converged.tolist()} block steps {c3steps} (CPU f64: "
+        f"{CONFIG3_CPU_STEPS}, {100 * c3_off:.2f}% apart) first solve "
+        f"{c3ms:.1f} ms launches {c3launch}; true relative residuals (host "
+        f"CSR, f64) {[f'{r:.3e}' for r in c3_res]}")
+    if (not bool(c3res.converged.all()) or max(c3_res) > CONFIG3_TRUE_MAX
+            or c3_off > CONFIG3_STEPS_TOL):
+        fail(f"config 3: converged {c3res.converged.tolist()}, true "
+             f"residuals {c3_res}, {c3steps} block steps")
+    if not c3launch.get("dia_spmm") or not c3launch.get("chol_inv_small"):
+        fail(f"config 3 launches {c3launch}")
+    c3ref, c3plain_ms = plain_run(c3step, c3b)
+    c3ref_res = c3_true(c3ref.x)
+    c3rel_x, _ = rel_err(c3res.x, c3ref.x)
+    log(f"config 3 plain reference: converged {c3ref.converged.tolist()} "
+        f"block steps {int(c3ref.iters)} solve {c3plain_ms:.1f} ms; true "
+        f"relative residuals {[f'{r:.3e}' for r in c3ref_res]}; "
+        f"max|Δx|/max|x| = {c3rel_x:.3e}")
+    if not bool(c3ref.converged.all()) or max(c3ref_res) > CONFIG3_TRUE_MAX:
+        fail(f"config 3 plain run: converged {c3ref.converged.tolist()}, "
+             f"true residuals {c3ref_res}")
+    del c3ref, c3res
+    c3warm_ms = warm(c3step, c3b)
+
+    # -- 7o. uncoupled SA-AMG PCG on a stored Laplace3D 128³ (fine level DIA,
+    # coarse levels and transfers ELL), f32
+    gridu = "x".join(map(str, UAMG_DIMS))
+    au = assemble(f"Laplace3D {gridu} f32 host CSR", lambda: laplace3d(
+        *UAMG_DIMS, dtype=np.float32))
+    uamg, u_setup_s = setup(f"uncoupled {gridu}", lambda: SaAmg(
+        au, {"dtype": np.float32, "aggregation: type": "uncoupled"},
+        device="cuda").compute())
+
+    def describe(a):
+        if isinstance(a, DiaMatrix):
+            return f"DIA {len(a.offsets)} diags"
+        return f"ELL k={a.k}"
+
+    log(f"uncoupled {gridu} levels: " + " -> ".join(
+        f"{describe(lv['a'])} {lv['a'].n_rows} rows (P ELL k={lv['p'].k}, "
+        f"Pt ELL k={lv['pt'].k})" for lv in uamg.levels)
+        + f" -> dense {tuple(uamg.coarse_inv.shape)}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if not isinstance(uamg.levels[0]["a"], DiaMatrix):
+        fail("uncoupled hierarchy: the fine level is not DIA")
+    ustep, (ub, ust) = uncoupled_amg_entry(amg=uamg)
+    u_kernels = {"dia_spmv": dia_spmv}
+    ures, usolve_ms, u_launches, u_per, u_gaps = run_marked(
+        ustep, (ub, ust), SaAmg, "apply_state", u_kernels)
+    uiters = int(ures.iters)
+    ucsr = csr_f64(au)
+    u_true = host_residual(ucsr, ures.x, ub)
+    log(f"uncoupled AMG-PCG {gridu} f32: converged {bool(ures.converged)} "
+        f"iters {uiters} first solve {usolve_ms:.1f} ms launches "
+        f"{u_launches}; launches between preconditioner calls {u_gaps}; "
+        f"true relative residual (host CSR, f64) {u_true:.3e}")
+    if not bool(ures.converged) or not u_true <= RTOL:
+        fail(f"uncoupled AMG-PCG: converged {bool(ures.converged)}, true "
+             f"residual {u_true:.3e}")
+    if not u_launches["dia_spmv"]:
+        fail("uncoupled AMG-PCG never launched dia_spmv")
+    uref, uplain_ms = plain_run(ustep, ub, ust)
+    urel_x, _ = rel_err(ures.x, uref.x)
+    log(f"uncoupled plain reference: converged {bool(uref.converged)} iters "
+        f"{int(uref.iters)} solve {uplain_ms:.1f} ms; max|Δx|/max|x| = "
+        f"{urel_x:.3e} (tol {UAMG_X_TOL:.0e})")
+    if abs(int(uref.iters) - uiters) > 1 or not urel_x <= UAMG_X_TOL:
+        fail(f"uncoupled kernel and plain solves differ: iters {uiters} vs "
+             f"{int(uref.iters)}, x {urel_x:.3e}")
+    del uref, ures
+    uwarm_ms = warm(ustep, ub, ust)
+
+    # -- 7p. null-space uncoupled SA-AMG on the 48³ elasticity matrix ------
+    nsamg, ns_setup_s = setup(f"null-space uncoupled {grid_e}", lambda: SaAmg(
+        ea, {"dtype": np.float32, "nullspace: vectors": rigid_body_modes(
+            *EL_DIMS), "number of equations": 3, "smoother: sweeps": 3,
+             "smoother: damping factor": 0.6}, device="cuda").compute())
+    nsop = nsamg.fine_op
+    log(f"null-space uncoupled {grid_e} levels: " + " -> ".join(
+        f"{describe(lv['a'])} {lv['a'].n_rows} rows (P ELL k={lv['p'].k}, "
+        f"Pt ELL k={lv['pt'].k})" for lv in nsamg.levels)
+        + f" -> dense {tuple(nsamg.coarse_inv.shape)}")
+
+    def ns_step(b_vec, st):
+        return cg_solve(lambda v: matvec.spmv(nsop, v), b_vec,
+                        prec=lambda v: nsamg.apply_state(st, v), rtol=RTOL,
+                        maxiter=NS_MAXITER)
+
+    nsst = nsamg.state()
+    nsres, nsms, ns_launches, ns_per, ns_gaps = run_marked(
+        ns_step, (eb, nsst), SaAmg, "apply_state", u_kernels)
+    ns_true = host_residual(ecsr, nsres.x, eb)
+    log(f"null-space uncoupled SA-AMG PCG {grid_e} f32 (rigid-body modes, 3 "
+        f"Jacobi sweeps at 0.6): converged {bool(nsres.converged)} iters "
+        f"{int(nsres.iters)} (BlockStructuredAmg: {eiters}) first solve "
+        f"{nsms:.1f} ms launches {ns_launches}; true relative residual "
+        f"(host CSR, f64) {ns_true:.3e}")
+    if not bool(nsres.converged) or not ns_true <= RTOL:
+        fail(f"null-space uncoupled AMG-PCG: converged "
+             f"{bool(nsres.converged)}, true residual {ns_true:.3e}")
+    nswarm_ms = warm(ns_step, eb, nsst)
+    nsiters = int(nsres.iters)
+    del nsres
+
+    # -- 7q. every preconditioner name this slice ports through build() ----
+    nxm, nym = MAXWELL_DIMS
+    n_edges = nxm * (nym + 1) + (nxm + 1) * nym
+    am, gm = maxwell2d(nxm, nym, sigma=10.0 ** np.random.default_rng(
+        9).uniform(-3, 0, n_edges))
+    ell_m = csr_to_ell(am, device="cuda")
+    csr_m = csr_f64(am)
+    gmres30 = {"Num Blocks": 30, "Convergence Tolerance": BUILD_RTOL,
+               "Maximum Iterations": 1000}
+    build_runs = {}
+    for label, name, pparams, cpu_iters in BUILD_CASES:
+        hip = name == "HIPTMAIR"
+        host, op_, csr_ = (am, ell_m, csr_m) if hip else (a3h, c3step.operator,
+                                                         c3csr)
+        t0 = time.perf_counter()
+        bstep_, (bb_,) = build_entry(
+            "GMRES", name, a=host, dia=op_, params=gmres30,
+            prec_params=pparams, device="cuda",
+            **({"aux_op": gm} if hip else {}))
+        torch.cuda.synchronize()
+        bset_s = time.perf_counter() - t0
+        bres_, bms_, blaunch_ = drive(bstep_, (bb_,))
+        b_true = host_residual(csr_, bres_.x, bb_)
+        conv = bool(torch.as_tensor(bres_.converged).all())
+        log(f"build() GMRES(30) + {label} on "
+            f"{'maxwell2d ' + 'x'.join(map(str, MAXWELL_DIMS)) if hip else 'recirc2d ' + grid3} "
+            f"f64: set-up {bset_s:.2f} s; converged {conv} iters "
+            f"{int(bres_.iters)} (JAX package, CPU f64: {cpu_iters}) first "
+            f"solve {bms_:.1f} ms launches {blaunch_ or 'none'}; true "
+            f"relative residual (host CSR, f64) {b_true:.3e}")
+        if not conv or not b_true <= 10 * BUILD_RTOL:
+            fail(f"build() GMRES + {label}: converged {conv}, true residual "
+                 f"{b_true:.3e}")
+        # a preconditioner holding a DIA operator must have run the kernel,
+        # as the SpMV or (block relaxation's (n, 1) residuals) the SpMM
+        # (Schwarz applies dense inverses; a factor with fill on many
+        # diagonals packs as ELL, plain torch)
+        holds_dia = any(isinstance(v, DiaMatrix)
+                        for v in vars(bstep_.preconditioner).values())
+        if holds_dia and not (blaunch_.get("dia_spmv")
+                              or blaunch_.get("dia_spmm")):
+            fail(f"build() GMRES + {label} never launched the DIA kernel")
+        build_runs[label] = dict(iters=int(bres_.iters), cpu=cpu_iters,
+                                 first=bms_, setup=bset_s, launches=blaunch_)
+        del bres_, bstep_
+
     # -- 8. timings at the main paths' shapes --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     n0, n1, nd = fine.n_rows_pad, a1.n_rows_pad, len(a1.offsets)
@@ -1828,6 +2081,70 @@ def main():
              per_step=gcro["dia_by_k"].get((n1, 4), 0) / max(gcro["iters"],
                                                              1),
              err=new_err["dia_spmm4"])]
+    # the tenth slice's shapes, each kernel held to its plain version and each
+    # library call to the plain version first: the ILU factors' DIA SpMM at
+    # k = 2 in f64 (config 3), the uncoupled fine level's DIA SpMV (128³ x 7
+    # diagonals, f32) and chol_inv_small at k = 2 in f64 (config 3's CholQR2)
+    l3, au0 = ilu3._l, uamg.levels[0]["a"]
+    x3k = randn((l3.n_rows_pad, 2), torch.float64, seed=40)
+    xu = randn(au0.n_rows_pad, torch.float32, seed=41)
+    p2 = randn((4096, 2), torch.float64, seed=42)
+    g2 = with_floor(p2.T @ p2)
+    eye2 = torch.eye(2, device="cuda", dtype=torch.float64)
+    csr_l3, csr_u0 = dia_as_csr(l3), dia_as_csr(au0)
+    nd_l3, nd_u0 = len(l3.offsets), len(au0.offsets)
+
+    def chol2_library():
+        return torch.linalg.solve_triangular(torch.linalg.cholesky_ex(g2)[0],
+                                             eye2, upper=False)
+
+    stored_err = {
+        "ilu": check(f"dia SpMM, ILU(0) factor L of recirc2d {grid3} "
+                     f"({l3.n_rows_pad} rows x {nd_l3} diags), k=2 f64",
+                     dia_spmm(l3, x3k), dia_spmv_plain(l3, x3k), 0.0),
+        "uamg": check(f"dia, uncoupled fine level {gridu} ({au0.n_rows_pad} "
+                      f"rows x {nd_u0} diags) f32", dia_spmv(au0, xu),
+                      dia_spmv_plain(au0, xu), TOL[torch.float32]),
+        "chol2": check("chol_inv_small k=2 f64 (config 3's CholQR2)",
+                       chol_inv_small(g2)[1], chol_inv_small_plain(g2)[1],
+                       CHOL_TOL[torch.float64]["vs_plain"])}
+    check("sparse CSR @ dense library call vs dia SpMM (ILU factor, f64)",
+          csr_l3 @ x3k, dia_spmv_plain(l3, x3k), 1e-12)
+    check("sparse CSR library call vs dia (uncoupled fine level)",
+          csr_u0 @ xu, dia_spmv_plain(au0, xu), 1e-5)
+    check("cholesky_ex + solve_triangular library call vs chol_inv_small "
+          "k=2 f64", chol2_library(), chol_inv_small_plain(g2)[1], 1e-12)
+    rows += [
+        dict(name="dia_spmm", source="dia_spmv.cu",
+             replaces="dia_spmv.py:273", also_replaces="dia_spmv.py:430",
+             shape=f"ILU(0) factor L of recirc2d {grid3}, {l3.n_rows_pad} "
+                   f"rows x {nd_l3} diags x k=2 f64 (BASELINE config 3)",
+             bytes=(nd_l3 + 2 * 2) * l3.n_rows_pad * 8,
+             flops=2 * nonzeros(l3) * 2, flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: dia_spmm(l3, x3k),
+             plain=lambda: dia_spmv_plain(l3, x3k),
+             library=lambda: csr_l3 @ x3k, launches=c3launch["dia_spmm"],
+             per_step=c3launch["dia_spmm"] / max(c3steps, 1),
+             err=stored_err["ilu"]),
+        dict(name="dia_spmv", source="dia_spmv.cu",
+             replaces="dia_spmv.py:273", also_replaces="dia_spmv.py:524",
+             shape=f"uncoupled SA-AMG fine level {gridu}, {au0.n_rows_pad} "
+                   f"rows x {nd_u0} diags f32",
+             bytes=(nd_u0 + 2) * au0.n_rows_pad * 4,
+             flops=2 * nonzeros(au0), kernel=lambda: dia_spmv(au0, xu),
+             plain=lambda: dia_spmv_plain(au0, xu),
+             library=lambda: csr_u0 @ xu, launches=u_launches["dia_spmv"],
+             per_step=u_per["dia_spmv"], err=stored_err["uamg"]),
+        dict(name="chol_inv_small", source="chol_inv_small.cu",
+             replaces="smalldense.py:123", also_replaces=None,
+             shape="k=2 f64 (BASELINE config 3's CholQR2)",
+             bytes=3 * 2 * 2 * 8, flops=2 * 2 ** 3 // 3,
+             flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: chol_inv_small(g2),
+             plain=lambda: chol_inv_small_plain(g2), library=chol2_library,
+             launches=c3launch["chol_inv_small"],
+             per_step=c3launch["chol_inv_small"] / max(c3steps, 1),
+             err=stored_err["chol2"])]
     # fused kernels the polynomial wrappers launched on their own paths
     fused_launches = {"stencil_poly": c_fused, "stencil_powers": s_fused}
     # the empty kernel and chol_inv_small at the block path's k and at 32:
@@ -2045,6 +2362,26 @@ def main():
             f"{run['first']:.1f} ms); launches {run['launches']}; true "
             f"relative residual {run['true']:.3e}")
 
+    log(f"BASELINE config 3 solve (recirc2d {grid3}, nrhs 2, f64): "
+        f"{c3warm_ms:.2f} ms wall, {c3warm_ms / max(c3steps, 1):.3f} ms per "
+        f"block step over {c3steps} block steps (first solve {c3ms:.1f} ms; "
+        f"plain versions {c3plain_ms:.1f} ms); set-up (write, read, ELL, "
+        f"ILU) {c3_setup_s:.2f} s; launches {c3launch}")
+    log(f"uncoupled AMG-PCG {gridu} f32: host set-up {u_setup_s:.2f} s; "
+        f"solve {uwarm_ms:.2f} ms wall, {uwarm_ms / max(uiters, 1):.3f} "
+        f"ms/iter over {uiters} iterations (first solve {usolve_ms:.1f} ms; "
+        f"plain versions {uplain_ms:.1f} ms); launches per iteration "
+        f"{u_per}, per solve {u_launches}")
+    log(f"null-space uncoupled SA-AMG PCG {grid_e} f32: host set-up "
+        f"{ns_setup_s:.2f} s; solve {nswarm_ms:.2f} ms wall over {nsiters} "
+        f"iterations (first solve {nsms:.1f} ms); launches per iteration "
+        f"{ns_per}; BlockStructuredAmg: {eiters} iterations, "
+        f"{ewarm_ms:.2f} ms, set-up {el_setup_s:.2f} s")
+    for label, run in build_runs.items():
+        log(f"build() GMRES(30) + {label}: {run['iters']} iterations (JAX "
+            f"package, CPU f64: {run['cpu']}), set-up {run['setup']:.2f} s, "
+            f"first solve {run['first']:.1f} ms, launches {run['launches']}")
+
     # -- 9. one solve of each path under the profiler: device time by kernel
     # (last, so that it cannot disturb the timings above)
     profile("CG solve", lambda: step(b, state), focus="stencil_kernel")
@@ -2068,6 +2405,13 @@ def main():
     gc = fk_runs["GCRODR"]
     profile("factory GCRODR solve (recycled space)",
             lambda: gc["step"](*gc["args"]))
+
+    profile("BASELINE config 3 (ILU + DGKS block GMRES) solve",
+            lambda: c3step(c3b), focus="dia_mv_kernel")
+    profile(f"uncoupled AMG-PCG {gridu} solve", lambda: ustep(ub, ust),
+            focus="dia_kernel")
+    profile(f"null-space uncoupled AMG-PCG {grid_e} solve",
+            lambda: ns_step(eb, nsst), focus="dia_kernel")
 
     log(f"chip_smoke total: {time.perf_counter() - t_main:.1f} s")
     log(card)

@@ -3,8 +3,9 @@
     python3 scripts/rehearse_chip_smoke.py
 
 Runs the whole script at small sizes (256³ → 32³, the elasticity, plane,
-BDIA, config 2 and config 4 grids cut as below, 128³ cases → 24³) on the
-CPU: every kernel wrapper takes its launch path, and each launch computes
+BDIA, config 2 and config 4 grids cut as below, the uncoupled AMG's 128³ →
+16³, config 3's 128² → 32² with the CPU's 29 block steps, maxwell2d 128² →
+24², other 128³ cases → 24³) on the CPU: every kernel wrapper takes its launch path, and each launch computes
 the plain version instead (so the launch counters move and every gate,
 count and log line of the script runs); CUDA events time the host, CUDA
 graphs become plain calls, the profiler records the CPU only, and
@@ -126,6 +127,10 @@ reps = [("DIMS = (256, 256, 256)", "DIMS = (32, 32, 32)"),
         ("BDIA2D_DIMS = (1024, 512)", "BDIA2D_DIMS = (64, 32)"),
         ("CONFIG2_DIMS = (64, 64, 64)", "CONFIG2_DIMS = (12, 12, 12)"),
         ("CONFIG4_DIMS = (128, 128, 128)", "CONFIG4_DIMS = (24, 24, 24)"),
+        ("UAMG_DIMS = (128, 128, 128)", "UAMG_DIMS = (16, 16, 16)"),
+        ("CONFIG3_NX = 128", "CONFIG3_NX = 32"),
+        ("CONFIG3_CPU_STEPS = 649", "CONFIG3_CPU_STEPS = 29"),
+        ("MAXWELL_DIMS = (128, 128)", "MAXWELL_DIMS = (24, 24)"),
         ("(128, 128, 128)", "(24, 24, 24)"),
         ('"cuda"', '"cpu"'),
         (",\n            torch.profiler.ProfilerActivity.CUDA]", "]")]

@@ -146,10 +146,11 @@ def test_wcycle_apply_state_matches_jax():
 
 def test_unported_branches_raise():
     op = laplace3d(8, 8, 8, fmt="stencil")
-    with pytest.raises(NotImplementedError, match="uncoupled"):
+    # the uncoupled branch is ported (tests/test_torch_uncoupled_amg.py); as
+    # in the reference, it takes a stored matrix, not a bare StencilOp
+    with pytest.raises(TypeError, match="CsrHost"):
         SaAmg(op, {"aggregation: type": "uncoupled"}, device="cpu").compute()
-    # the Chebyshev smoother is ported for the structured branch only
-    with pytest.raises(NotImplementedError, match="uncoupled"):
+    with pytest.raises(TypeError, match="CsrHost"):
         SaAmg(op, {"aggregation: type": "uncoupled",
                    "smoother: type": "chebyshev"}, device="cpu").compute()
     with pytest.raises(ValueError, match="even dim"):

@@ -33,7 +33,8 @@ from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
                                       bsr_gmres_entry, cheb_entry,
                                       elasticity_entry, entry,
                                       fused_cg_entry, gmres_entry,
-                                      sstep_entry)
+                                      mm_block_gmres_entry, sstep_entry,
+                                      uncoupled_amg_entry)
 from trilinos_tpu_torch.galeri import (elasticity3d, laplace3d,
                                        rigid_body_modes)
 from trilinos_tpu_torch.ops import (bdia_spmm, bdia_spmv, cg_fused_iteration,
@@ -129,6 +130,69 @@ def test_gmres_entry_matches_jax_and_runs_on_the_cpu():
     bres = b_step(*b_args)
     assert bres.iters == 30 and bool(torch.isfinite(bres.x).all())
     assert stencil_spmv.launches == 0 and dia_spmv.launches == 0
+
+
+def test_mm_block_gmres_entry_matches_jax(tmp_path):
+    """BASELINE config 3's twin at 32²: recirc2d written and read back as
+    Matrix Market, ELL, Ilu0 with 20 sweeps, DGKS block GMRES on 2 seed-2
+    normals, f64, against the JAX package's pipeline on the same file: the
+    same 29 block steps and x to 1e-8, through the native reader and the
+    native ILU(0), with no kernel launched on the CPU."""
+    from trilinos_tpu import precond as jprec
+    from trilinos_tpu.io import read_sparse as j_read_sparse
+    from trilinos_tpu.ops import csr_to_ell as j_csr_to_ell
+    from trilinos_tpu.solvers import block_gmres as j_block_gmres
+    from trilinos_tpu_torch.io import matrix_market
+    from trilinos_tpu_torch.precond import ilu
+
+    path = tmp_path / "recirc2d_32.mtx"
+    before = (matrix_market.read_sparse.native_calls,
+              ilu.ilu0_factor.native_calls)
+    dia_spmv.launches = 0
+    step, (b,) = mm_block_gmres_entry(32, device="cpu", path=path)
+    assert (matrix_market.read_sparse.native_calls,
+            ilu.ilu0_factor.native_calls) == (before[0] + 1, before[1] + 1)
+    assert isinstance(step.preconditioner._l, type(
+        step.preconditioner._u)) and hasattr(step.preconditioner._l,
+                                             "offsets")
+    res = step(b)
+    a = j_read_sparse(str(path))
+    np.testing.assert_array_equal(step.matrix.vals, a.vals)
+    dev = j_csr_to_ell(a)
+    jm = jprec.Ilu0(a, {"fact: sweeps": 20}).compute()
+    jres = j_block_gmres(lambda x: j_spmv(dev, x, impl="xla"),
+                         jnp.asarray(b.numpy()), prec=jm, num_blocks=60,
+                         max_restarts=20, rtol=1e-8, ortho="DGKS")
+    assert res.iters == int(jres.iters) == 29
+    assert bool(res.converged.all())
+    assert rel(res.x.numpy(), jres.x) <= 1e-8
+    n = a.shape[0]
+    r = b.numpy()[:n] - a.to_dense() @ res.x.numpy()[:n]
+    assert (np.linalg.norm(r, axis=0)
+            / np.linalg.norm(b.numpy()[:n], axis=0)).max() <= 1e-6
+    assert dia_spmv.launches == 0
+
+
+@pytest.mark.parametrize("dtype,max_diters,tol", [
+    (np.float64, 0, 1e-9), (np.float32, 0, 1e-4)])
+def test_uncoupled_amg_entry_matches_jax(dtype, max_diters, tol):
+    """Uncoupled SA-AMG PCG on the stored Laplace3D 16³ against the JAX
+    package's hierarchy on the same CSR: the same CG iterations and x
+    (f64 to 1e-9, f32 to 1e-4); the fine level is DIA, the coarse ELL."""
+    step, (b, st) = uncoupled_amg_entry(dtype=dtype, device="cpu")
+    res = step(b, st)
+    jm = JSaAmg(j_laplace3d(16, 16, 16, dtype=dtype),
+                {"dtype": dtype, "aggregation: type": "uncoupled"}).compute()
+    jst = jm.state()
+    jfine = jst["levels"][0]["a"]
+    jres = j_cg(lambda v: j_spmv(jfine, v), jnp.asarray(b.numpy()),
+                prec=lambda v: jm.apply_state(jst, v), rtol=1e-5, maxiter=50)
+    assert bool(res.converged) and bool(jres.converged)
+    assert abs(res.iters - int(jres.iters)) <= max_diters
+    assert rel(res.x.numpy(), jres.x) <= tol
+    assert res.x.dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
+    assert [type(lv["a"]).__name__ for lv in st["levels"]][:2] == [
+        "DiaMatrix", "EllMatrix"]
 
 
 def test_bsr_gmres_entry_runs_on_the_cpu():
@@ -257,7 +321,16 @@ def test_port_imports_no_jax():
             "trilinos_tpu_torch/solvers/block_gcrodr.py",
             "trilinos_tpu_torch/solvers/factory.py",
             "trilinos_tpu_torch/precond/poly.py",
-            "trilinos_tpu_torch/utils/output.py"} <= names
+            "trilinos_tpu_torch/utils/output.py",
+            "trilinos_tpu_torch/io/matrix_market.py",
+            "trilinos_tpu_torch/io/harwell_boeing.py",
+            "trilinos_tpu_torch/io/container.py",
+            "trilinos_tpu_torch/precond/ilu.py",
+            "trilinos_tpu_torch/precond/ilut.py",
+            "trilinos_tpu_torch/precond/containers.py",
+            "trilinos_tpu_torch/precond/multicolor_gs.py",
+            "trilinos_tpu_torch/precond/schwarz.py",
+            "trilinos_tpu_torch/precond/hiptmair.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -271,7 +344,7 @@ def test_default_device_needs_a_card():
         entry()
     for fn in (block_entry, cheb_entry, sstep_entry, fused_cg_entry,
                elasticity_entry, bdia_cg_entry, gmres_entry,
-               bsr_gmres_entry):
+               bsr_gmres_entry, mm_block_gmres_entry, uncoupled_amg_entry):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
     from trilinos_tpu_torch.galeri import laplace3d

@@ -231,6 +231,58 @@ def test_build_with_and_without_preconditioner():
         build({"Preconditioner Type": "CHEBYSHEV"})
 
 
+NEW_PRECONDITIONERS = [
+    ("RILUK", {"fact: iluk level-of-fill": 1}), ("RBILUK", {}), ("ILU", {}),
+    ("ILU(0)", {}), ("ILUT", {}), ("BLOCK RELAXATION", {}),
+    ("TRIDI", {"relaxation: container": "TriDi"}),
+    ("BANDED RELAXATION", {"relaxation: container": "Banded"}),
+    ("DATABASE SCHWARZ", {"relaxation: container": "Database"}),
+    ("MT GAUSS-SEIDEL", {}), ("GAUSS-SEIDEL", {}), ("SCHWARZ", {}),
+    ("ADDITIVE SCHWARZ", {"schwarz: combine mode": "add"}), ("HIPTMAIR", {})]
+
+
+@pytest.mark.parametrize("name,pparams", NEW_PRECONDITIONERS,
+                         ids=[n for n, _ in NEW_PRECONDITIONERS])
+def test_build_accepts_every_new_preconditioner(name, pparams):
+    """Each preconditioner name this slice ports, through ``build`` with
+    GMRES(30) at rtol 1e-8 on recirc2d(12, 12) (HIPTMAIR: maxwell2d(6, 5)
+    with its discrete gradient as ``aux_op``), f64: the preconditioner is
+    the reference's class, its apply equals the JAX package's to 1e-12, and
+    the solve converges to the true-residual gate."""
+    from trilinos_tpu import precond as jprec
+    from trilinos_tpu.galeri import recirc2d as j_recirc2d
+    from trilinos_tpu.galeri.stencils import maxwell2d as j_maxwell2d
+
+    kw, jkw = {}, {}
+    if name == "HIPTMAIR":
+        a, g = j_maxwell2d(6, 5, sigma=0.1)
+        kw = {"aux_op": TF.CsrHost(g.row_ptr, g.cols, g.vals, g.shape)}
+        jkw = {"aux_op": g}
+    else:
+        a = j_recirc2d(12, 12, diff=1e-2)
+    params = {"Linear Solver Type": "GMRES",
+              "Solver Types": {"GMRES": {"Num Blocks": 30,
+                                         "Convergence Tolerance": 1e-8,
+                                         "Maximum Iterations": 1000}},
+              "Preconditioner Type": name,
+              "Preconditioner Types": {name: dict(pparams)}}
+    ta = TF.CsrHost(a.row_ptr, a.cols, a.vals, a.shape)
+    mgr, m = build(params, a_csr=ta, device="cpu", **kw)
+    jm = jprec.create(name, a, dict(pparams), **jkw).compute()
+    assert type(m).__name__ == type(jm).__name__
+    dev = TF.choose_format(ta, device="cpu")
+    n, npad = a.shape[0], dev.n_rows_pad
+    b = np.zeros(npad)
+    b[:n] = np.random.default_rng(6).standard_normal(n)
+    assert rel(m(torch.from_numpy(b)).numpy(), jm.apply(jnp.asarray(b))) \
+        <= 1e-12
+    res = mgr.solve(LinearProblem(lambda v: TS.spmv(dev, v),
+                                  torch.from_numpy(b), right_prec=m))
+    assert bool(torch.as_tensor(res.converged).all())
+    r = b[:n] - a.to_dense() @ res.x.numpy()[:n]
+    assert np.linalg.norm(r) <= 1e-7 * np.linalg.norm(b[:n])
+
+
 # -- the entries ------------------------------------------------------------
 ENTRY_DIMS = (8, 8, 8)
 _JAMG = []

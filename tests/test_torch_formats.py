@@ -61,6 +61,37 @@ def check_applies(j, t, n_pad, nrhs, seed=7):
         assert rel(got, want) <= tol, (transpose, rel(got, want))
 
 
+ELL_KW = [{}, {"k": 9}, {"n_rows_pad": 48}, {"identity_pad_rows": False},
+          {"n_rows_pad": 40, "identity_pad_rows": False, "n_cols": 36}]
+
+
+@pytest.mark.parametrize("case", ["random", "rect", "empty_rows", "recirc"])
+@pytest.mark.parametrize("kw", ELL_KW, ids=["default", "k", "rows", "no-id",
+                                           "rectangular"])
+def test_ell_pack_arguments_match_jax(rng, case, kw):
+    """``csr_to_ell``'s width, padded rows, identity-pad flag and column
+    count as the reference takes them: the cases of
+    ``test_ell_pack_and_applies`` packed with and without them give the
+    reference's arrays, and the defaults give what the argument-less call
+    gave (zero pad rows)."""
+    a = {"random": lambda: random_csr(rng, 33, 33),
+         "rect": lambda: random_csr(rng, 16, 24),
+         "empty_rows": lambda: JF.CsrHost.from_coo([2], [1], [3.0], (5, 5)),
+         "recirc": lambda: jst.recirc2d(5, 7, diff=1e-2)}[case]()
+    if kw.get("k", 0) and kw["k"] < a.max_row_length():
+        kw = dict(kw, k=a.max_row_length())
+    j, t = pack("ell", a, **kw)
+    np.testing.assert_array_equal(t.cols.numpy(), np.asarray(j.cols))
+    np.testing.assert_array_equal(t.vals.numpy(), np.asarray(j.vals))
+    assert (t.n_rows, t.n_cols, t.nnz, t.k) == (j.n_rows, j.n_cols, j.nnz, j.k)
+    plain = TF.csr_to_ell(port_csr(a), device="cpu")
+    if not kw:
+        np.testing.assert_array_equal(t.cols.numpy(), plain.cols.numpy())
+    assert not t.vals.numpy()[a.shape[0]:].any()
+    with pytest.raises(ValueError, match="exceeds ELL width"):
+        TF.csr_to_ell(port_csr(a), k=a.max_row_length() - 1, device="cpu")
+
+
 @pytest.mark.parametrize("case", ["random", "rect", "empty_rows", "recirc"])
 def test_ell_pack_and_applies(rng, case):
     if case == "random":

@@ -18,7 +18,10 @@ from .ops.formats import (BdiaMatrix, BsrMatrix, CsrHost, DiaMatrix,
                           EllMatrix, dia_from_host)
 from .ops.stencil_op import StencilOp
 from .precond.amg import structured_block
+from .precond.ilu import Ilu0
+from .precond.ilut import Ilut
 from .precond.jacobi import Relaxation
+from .precond.schwarz import AdditiveSchwarz
 from .precond.poly import GmresPoly
 from .solvers.gcrodr import RecycleSpace
 from .solvers.rcg import CgRecycleSpace
@@ -85,6 +88,47 @@ def bsr_from_numpy(bcols, bvals, block_size: int, n_rows: int, n_cols: int,
         nnz=int(nnz))
 
 
+def stored_from_numpy(m, device=None):
+    """The port's form of one of the JAX package's stored matrices whose
+    arrays are numpy: a DIA (2-D or lane-packed data), BDIA, ELL or BSR
+    matrix, told apart by its fields."""
+    if hasattr(m, "block_size") and hasattr(m, "offsets"):
+        return bdia_from_numpy(m.data, m.offsets, m.block_size, m.n_rows,
+                               m.n_cols, m.nnz, device)
+    if hasattr(m, "offsets"):
+        return dia_from_numpy(m.data, m.offsets, m.n_rows, m.n_cols, m.nnz,
+                              device)
+    if hasattr(m, "bcols"):
+        return bsr_from_numpy(m.bcols, m.bvals, m.block_size, m.n_rows,
+                              m.n_cols, m.nnz, device)
+    if hasattr(m, "cols") and hasattr(m, "vals"):
+        return ell_from_numpy(m.cols, m.vals, m.n_rows, m.n_cols, m.nnz,
+                              device)
+    raise TypeError(f"no stored form for {type(m).__name__}")
+
+
+def ilu_from_numpy(a: CsrHost, l, u, udinv, sweeps: int, params=None,
+                   ilut: bool = False, device=None) -> Ilu0:
+    """A computed port ``Ilu0`` (``Ilut`` with ``ilut``) on host matrix
+    ``a`` whose state is the JAX one's: its factors ``_l`` and ``_u`` (DIA
+    or ELL, arrays numpy), ``_udinv`` and ``sweeps``."""
+    m = (Ilut if ilut else Ilu0)(a, params, device=device).initialize()
+    m.set_state(stored_from_numpy(l, device), stored_from_numpy(u, device),
+                _to_device(udinv, device), int(sweeps))
+    return m
+
+
+def schwarz_from_numpy(a: CsrHost, inv, gather, weight, params=None,
+                       device=None) -> AdditiveSchwarz:
+    """A computed port ``AdditiveSchwarz`` on host matrix ``a`` whose state
+    is the JAX one's ``inv``, ``gather`` and ``weight``."""
+    m = AdditiveSchwarz(a, params, device=device).initialize()
+    m.set_state(_to_device(inv, device),
+                _to_device(np.asarray(gather, np.int64), device),
+                _to_device(weight, device))
+    return m
+
+
 def relaxation_from_numpy(a: CsrHost, dinv, omega: float, sweeps: int,
                           params=None, device=None) -> Relaxation:
     """A computed port ``Relaxation`` on host matrix ``a`` whose state is
@@ -140,6 +184,28 @@ def amg_state_from_jax(np_state: dict, dims, device=None) -> dict:
     coarse_inv = torch.from_numpy(np.array(np_state["coarse_inv"]))
     return {"levels": levels,
             "coarse_inv": coarse_inv.to(resolve_device(device))}
+
+
+def uncoupled_amg_state_from_jax(np_state: dict, device=None) -> dict:
+    """The port's uncoupled ``SaAmg.state()`` from the JAX package's one
+    with every array already numpy: each level's stored operator (DIA or
+    ELL; a matrix-free stencil fine level keeps its fields), Jacobi
+    diagonal and ELL ``p``/``pt``, and the coarse pseudo-inverse. Apply it
+    with the ``apply_state`` of a port hierarchy built on the same matrix,
+    which checks the level count."""
+    levels = []
+    for s in np_state["levels"]:
+        a = s["a"]
+        if hasattr(a, "coeffs"):
+            a_t = stencil_from_fields(a.dims, a.offsets, a.coeffs,
+                                      a.n_rows_pad, a.dtype)
+        else:
+            a_t = stored_from_numpy(a, device)
+        levels.append({"a": a_t, "dinv": _to_device(s["dinv"], device),
+                       "p": stored_from_numpy(s["p"], device),
+                       "pt": stored_from_numpy(s["pt"], device)})
+    return {"levels": levels,
+            "coarse_inv": _to_device(np_state["coarse_inv"], device)}
 
 
 def block_amg_state_from_jax(np_state: dict, device=None) -> dict:

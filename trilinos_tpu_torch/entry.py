@@ -70,11 +70,33 @@ seed-3 normal right-hand side (the JAX package's BASELINE test);
 ``build_entry()``: the Stratimikos path. ``build()`` takes the solver and
 preconditioner names and their parameter lists and returns a manager and
 a computed preconditioner for Galeri Laplace3D (host CSR, float32); the
-operator is the same matrix stored as DIA. ``params`` are the solver's;
-CHEBYSHEV takes degree 3, any other preconditioner its defaults. An
-already assembled host matrix may be passed as ``a=`` and its stored form
-as ``dia=``; ``step(b)``, with ``step.manager`` and
+operator is the same matrix stored as DIA. ``params`` are the solver's and
+``prec_params`` the preconditioner's (default: CHEBYSHEV degree 3, any
+other preconditioner its defaults); other keywords go to the
+preconditioner's constructor (HIPTMAIR's ``aux_op``). An already
+assembled host matrix may be passed as ``a=`` and its stored form (any
+format) as ``dia=``; ``step(b)``, with ``step.manager`` and
 ``step.preconditioner``.
+
+``mm_block_gmres_entry()``: BASELINE config 3, "MatrixMarket suite (e.g.
+bcsstk, sherman) block-GMRES with ILU(0) + DGKS ortho", on a generated
+nonsymmetric matrix: Galeri ``recirc2d(nx, nx)`` (default diffusion) is
+written to a Matrix Market file with ``write_sparse`` and read back with
+``read_sparse`` (the native reader), stored as ELL, preconditioned by
+``Ilu0`` with 20 Jacobi sweeps a factor (its factors DIA), and solved by
+block GMRES with DGKS projection on nrhs = 2 seed-2 normals, float64,
+``num_blocks=60``, ``max_restarts=20``, rtol 1e-8 (the JAX package's
+BASELINE test). The file goes to ``path`` (default: a temporary
+directory, removed after the read); ``step(b)``, with the matrix read
+back as ``step.matrix``, its ELL form as ``step.operator`` and the
+preconditioner as ``step.preconditioner``.
+
+``uncoupled_amg_entry()``: CG at rtol 1e-5 preconditioned by the uncoupled
+smoothed-aggregation hierarchy (``SaAmg`` with "aggregation: type"
+"uncoupled") of a stored Galeri Laplace3D host CSR, float32: the fine
+level packs as DIA and the coarse levels as ELL, P and Pᵀ as ELL. The CG
+operator is the hierarchy's stored fine level; ``step(b, state)`` as
+``entry()``.
 
 Every entry takes ``device`` (``None`` means the CUDA card and raises
 without one); the hierarchy paths also take an already-built hierarchy as
@@ -85,16 +107,19 @@ zero pad rows.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
+import tempfile
 
 import numpy as np
 import torch
 
 from .device import resolve_device, torch_dtype
-from .galeri import elasticity3d, laplace3d, rigid_body_modes
+from .galeri import elasticity3d, laplace3d, recirc2d, rigid_body_modes
+from .io import read_sparse, write_sparse
 from .ops.bdia_spmv import bdia_plane_solver_op
-from .ops.formats import choose_format, csr_to_bdia, csr_to_bsr
+from .ops.formats import choose_format, csr_to_bdia, csr_to_bsr, csr_to_ell
 from .ops.matvec import spmv
-from .precond import BlockStructuredAmg, Relaxation, SaAmg
+from .precond import BlockStructuredAmg, Ilu0, Relaxation, SaAmg
 from .solvers import (LinearProblem, block_gmres, build, cg, cg_fused,
                       cg_pipeline, create_solver, fgmres, gmres,
                       gmres_pipeline, gmres_single_reduce, sstep_gmres)
@@ -294,17 +319,19 @@ def pipelined_cg_entry(dims=(128, 128, 128), device=None):
 
 
 def build_entry(solver="CG", prec="CHEBYSHEV", dims=(256, 256, 256),
-                params=None, device=None, a=None, dia=None):
+                params=None, device=None, a=None, dia=None, prec_params=None,
+                **prec_kw):
     dev = resolve_device(device)
     if a is None:
         a = laplace3d(*dims, dtype=np.float32)
-    prec_params = ({"chebyshev: degree": 3}
-                   if prec.strip().upper() == "CHEBYSHEV" else {})
+    if prec_params is None:
+        prec_params = ({"chebyshev: degree": 3}
+                       if prec.strip().upper() == "CHEBYSHEV" else {})
     mgr, m = build({"Linear Solver Type": solver,
                     "Solver Types": {solver: dict(params or {})},
                     "Preconditioner Type": prec,
-                    "Preconditioner Types": {prec: prec_params}},
-                   a, device=dev)
+                    "Preconditioner Types": {prec: dict(prec_params)}},
+                   a, device=dev, **prec_kw)
     if dia is None:
         dia = choose_format(a, device=dev)
 
@@ -314,3 +341,34 @@ def build_entry(solver="CG", prec="CHEBYSHEV", dims=(256, 256, 256),
 
     step.manager, step.preconditioner = mgr, m
     return step, (_rhs(dia, dev, dia.dtype),)
+
+
+def mm_block_gmres_entry(nx=32, device=None, path=None):
+    dev = resolve_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        mtx = path or pathlib.Path(tmp) / f"recirc2d_{nx}.mtx"
+        write_sparse(mtx, recirc2d(nx, nx),
+                     comment=f"Galeri recirc2d({nx}, {nx})")
+        a = read_sparse(mtx)
+    ell = csr_to_ell(a, device=dev)
+    ilu = Ilu0(a, {"fact: sweeps": 20}, device=dev).compute()
+
+    def step(b_mv: torch.Tensor):
+        return block_gmres(lambda v: spmv(ell, v), b_mv, prec=ilu,
+                           num_blocks=60, max_restarts=20, rtol=1e-8,
+                           ortho="DGKS")
+
+    step.matrix, step.operator, step.preconditioner = a, ell, ilu
+    host = np.zeros((ell.n_rows_pad, 2))
+    host[:a.shape[0]] = np.random.default_rng(2).standard_normal(
+        (a.shape[0], 2))
+    return step, (torch.from_numpy(host).to(dev),)
+
+
+def uncoupled_amg_entry(dims=(16, 16, 16), dtype=np.float32, device=None,
+                        amg=None):
+    if amg is None:
+        amg = SaAmg(laplace3d(*dims, dtype=dtype),
+                    {"dtype": dtype, "aggregation: type": "uncoupled"},
+                    device=resolve_device(device)).compute()
+    return _amg_cg(amg.fine_op, amg)

@@ -69,6 +69,12 @@ class CsrHost:
         np.cumsum(counts, out=row_ptr[1:])
         return cls(row_ptr, cols.astype(np.int32), vals, shape)
 
+    @classmethod
+    def from_dense(cls, a: np.ndarray, tol: float = 0.0) -> "CsrHost":
+        a = np.asarray(a)
+        rows, cols = np.nonzero(np.abs(a) > tol)
+        return cls.from_coo(rows, cols, a[rows, cols], a.shape)
+
     @property
     def nnz(self) -> int:
         return len(self.cols)
@@ -416,20 +422,35 @@ def _tensor(arr: np.ndarray, dtype, device) -> torch.Tensor:
     return t if dtype is None else t.to(torch_dtype(dtype))
 
 
-def csr_to_ell(a: CsrHost, dtype=None, device=None) -> EllMatrix:
-    """Pack host CSR into padded ELL on ``device``: width the longest row,
-    rows padded to a multiple of ``ROW_ALIGN`` with zero rows (the
-    reference's identity branch marks only pad rows below ``n_cols``,
-    which a square matrix's pad rows never are)."""
+def csr_to_ell(a: CsrHost, dtype=None, k: int | None = None,
+               n_rows_pad: int | None = None, identity_pad_rows: bool = True,
+               n_cols: int | None = None, device=None) -> EllMatrix:
+    """Pack host CSR into padded ELL on ``device``.
+
+    ``k`` (the width) defaults to the longest row, ``n_rows_pad`` to the
+    row count rounded up to ``ROW_ALIGN``, ``n_cols`` to the matrix's.
+    Every pad row is a zero row: the reference's ``identity_pad_rows``
+    marks a square matrix's pad rows as identity rows only below
+    ``n_cols``, which they never are, so the flag changes nothing and is
+    taken for the reference's signature (a rectangular transfer, AMG's P
+    and Pᵀ, passes its padded row count and False)."""
     m, n = a.shape
-    k = max(a.max_row_length(), 1)
-    n_rows_pad = round_up(m, ROW_ALIGN)
+    if n_cols is not None:
+        n = n_cols
+    if k is None:
+        k = max(a.max_row_length(), 1)
+    if n_rows_pad is None:
+        n_rows_pad = round_up(m, ROW_ALIGN)
     dtype = a.vals.dtype if dtype is None else dtype
+    lens = a.row_lengths()
+    if lens.max(initial=0) > k:
+        raise ValueError(f"row length {lens.max()} exceeds ELL width {k}")
     cols = np.zeros((n_rows_pad, k), dtype=np.int64)
     vals = np.zeros((n_rows_pad, k), dtype=numpy_dtype(dtype))
-    pos = np.arange(a.nnz) - np.repeat(a.row_ptr[:-1], a.row_lengths())
-    cols[a._rows(), pos] = a.cols
-    vals[a._rows(), pos] = a.vals
+    pos = np.arange(a.nnz) - np.repeat(a.row_ptr[:-1], lens)
+    rows = a._rows()
+    cols[rows, pos] = a.cols
+    vals[rows, pos] = a.vals
     return EllMatrix(cols=_tensor(cols, None, device),
                      vals=_tensor(vals, dtype, device), n_rows=m, n_cols=n,
                      nnz=a.nnz)

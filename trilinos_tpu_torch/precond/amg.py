@@ -1,8 +1,24 @@
-"""Smoothed-aggregation AMG preconditioner: the structured branch.
+"""Smoothed-aggregation AMG preconditioner.
 
 Counterpart of ``SaAmg`` in ``trilinos_tpu/precond/amg.py`` (MueLu's SA-AMG
-analogue) for a constant-coefficient :class:`StencilOp` on a grid with an
-even dimension: aggregates are 2-blocks per coarsened axis, so
+analogue), with both of its branches.
+
+The uncoupled branch takes a stored matrix (``CsrHost``): the host set-up
+(``build_hierarchy_host``) aggregates by rounds of a distance-2 maximal
+independent set with seeded priorities (``aggregate``: numpy, as the
+reference, so the aggregates are the reference's bit for bit), forms the
+piecewise-constant or null-space tentative prolongator, smooths it with
+ω = damping / λmax(D⁻¹A) from host power steps, and takes each coarse
+level as PᵀAP through the native SpGEMM. Each level's operator goes
+through ``choose_format`` (a stencil level as DIA, on the card's kernel;
+coarse levels with wide rows as ELL), P and Pᵀ are rectangular ELL, and
+"fine: matrix-free operator" may stand in for the stored fine level.
+"nullspace: vectors" with "number of equations" aggregates the node graph
+and interpolates the null space exactly on every level.
+
+The structured branch takes a constant-coefficient :class:`StencilOp`
+on a grid with an even dimension: aggregates are 2-blocks per coarsened
+axis, so
 
   * the tentative transfers are reshapes (block sum / broadcast, no stored
     P),
@@ -16,19 +32,23 @@ even dimension: aggregates are 2-blocks per coarsened axis, so
     on the coarse DIA levels; the coarsest level is a dense pseudo-inverse
     matvec.
 
-Setup is host numpy; the level operators, Jacobi diagonals and coarse
-inverse live on ``device``. The uncoupled (CSR) branch is not ported yet
-and raises ``NotImplementedError``; its null-space tentative prolongator
-and prolongator smoothing are here, as ``precond/block_amg.py`` uses them.
+Either set-up is host numpy; the level operators, transfers, Jacobi
+diagonals and coarse pseudo-inverse live on ``device``, and the cycle is
+the same damped-Jacobi V- (or W-) cycle. The null-space tentative
+prolongator and the prolongator smoothing serve
+``precond/block_amg.py`` as well.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..device import resolve_device, torch_dtype
-from ..ops.formats import CsrHost, ROW_ALIGN, round_up
-from ..ops.matrix_ops import diag_matrix, spadd, spgemm
+from ..ops.formats import (CsrHost, ROW_ALIGN, choose_format, csr_to_ell,
+                           round_up)
+from ..ops.matrix_ops import diag_matrix, ptap, spadd, spgemm
 from ..ops.matvec import spmv
 from ..ops.stencil_op import StencilOp
 from ..utils.params import Param
@@ -56,10 +76,6 @@ _SPECS = {
     "number of equations": Param("number of equations", 1),
     "dtype": Param("dtype", None),
 }
-
-_UNCOUPLED = ("the uncoupled SA branch (CSR input, stored P/R) is not "
-              "ported yet (ROADMAP.md queue 1 item 5)")
-
 
 def structured_block(dims) -> tuple[int, ...]:
     """Per-axis aggregation factor: 2 where the axis is coarsenable."""
@@ -96,6 +112,98 @@ def block_pair_dup(e: torch.Tensor, cdims, block) -> torch.Tensor:
         if bb == 2:
             t = t.repeat_interleave(2, dim=ax)
     return t.reshape((-1,) + tail)
+
+
+def aggregate(a: CsrHost, min_size: int = 2) -> np.ndarray:
+    """Greedy distance-1 aggregation: agg id per node (MueLu
+    UncoupledAggregation phase 1 + leftover attachment).
+
+    Vectorized as rounds of a distance-2 maximal independent set
+    (random priorities; a node roots an aggregate iff its priority is
+    the max within graph distance 2, computed by two sparse
+    max-propagations with ``np.maximum.at``) — no per-row Python loop,
+    so setup scales to multi-million-row fine levels. Round count is
+    O(log n) w.h.p.; each round assigns the winners' whole (fully
+    unaggregated) neighborhoods."""
+    n = a.shape[0]
+    rows = np.repeat(np.arange(n, dtype=np.int64), a.row_lengths())
+    cols = a.cols.astype(np.int64)
+    keep = (cols != rows) & (cols < n)
+    rows, cols = rows[keep], cols[keep]
+
+    agg = np.full(n, -1, dtype=np.int64)
+    prio = np.random.default_rng(0).permutation(n).astype(np.float64) + 1
+    next_id = 0
+
+    def edge_max(x):
+        out = np.zeros(n, dtype=x.dtype)
+        np.maximum.at(out, rows, x[cols])
+        return np.maximum(out, x)
+
+    while True:
+        unagg = agg == -1
+        # candidates: unaggregated nodes with a fully unaggregated
+        # neighborhood (phase-1 root condition)
+        nbr_agg = np.zeros(n, dtype=bool)
+        np.maximum.at(nbr_agg, rows, ~unagg[cols])
+        cand = unagg & ~nbr_agg
+        if not cand.any():
+            break
+        pr = np.where(cand, prio, 0.0)
+        winners = cand & (pr == edge_max(edge_max(pr))) & (pr > 0)
+        w_ids = np.nonzero(winners)[0]
+        if not len(w_ids):
+            break
+        agg[w_ids] = next_id + np.arange(len(w_ids))
+        # winners are distance->2 independent: neighborhoods are
+        # disjoint, so direct scatter is race-free
+        sel = winners[rows]
+        agg[cols[sel]] = agg[rows[sel]]
+        next_id += len(w_ids)
+
+    # phase 2: attach leftovers to an adjacent aggregate (a few rounds
+    # pull in chains of leftovers)
+    for _ in range(3):
+        left = agg == -1
+        if not left.any():
+            break
+        best = np.full(n, -1, dtype=np.int64)
+        sel = left[rows] & (agg[cols] >= 0)
+        np.maximum.at(best, rows[sel], agg[cols[sel]])
+        take = left & (best >= 0)
+        agg[take] = best[take]
+    # isolated leftovers become singletons
+    left = np.nonzero(agg == -1)[0]
+    if len(left):
+        agg[left] = next_id + np.arange(len(left))
+    # renumber consecutively (some ids may be empty after attachment)
+    uniq, agg = np.unique(agg, return_inverse=True)
+    return agg.astype(np.int64)
+
+
+def tentative_prolongator(agg: np.ndarray) -> CsrHost:
+    n = len(agg)
+    nagg = int(agg.max()) + 1
+    counts = np.bincount(agg, minlength=nagg).astype(np.float64)
+    vals = 1.0 / np.sqrt(counts[agg])
+    return CsrHost.from_coo(np.arange(n), agg, vals, (n, nagg),
+                            sum_duplicates=False)
+
+
+def amalgamate_graph(a: CsrHost, b: int) -> CsrHost:
+    """Node (amalgamated) connectivity graph of a matrix with ``b`` dofs
+    per node — what MueLu aggregates for PDE systems
+    (muelu/src/Graph/MueLu_AmalgamationFactory_decl.hpp)."""
+    if b == 1:
+        return a
+    n_nodes = a.shape[0] // b
+    rows = np.repeat(np.arange(a.shape[0], dtype=np.int64),
+                     a.row_lengths()) // b
+    cols = a.cols.astype(np.int64) // b
+    key = np.unique(rows * n_nodes + cols)
+    return CsrHost.from_coo(key // n_nodes, key % n_nodes,
+                            np.ones(len(key)), (n_nodes, n_nodes),
+                            sum_duplicates=False)
 
 
 def tentative_prolongator_nullspace(node_agg: np.ndarray, b: int,
@@ -147,13 +255,69 @@ def tentative_prolongator_nullspace(node_agg: np.ndarray, b: int,
     return p_t, ns_c
 
 
+def power_omega(a: CsrHost, damping: float) -> float:
+    """ω = damping / λmax(D⁻¹A), λmax from ten host power steps from a
+    seed-0 normal start (the reference's estimate, bit for bit)."""
+    d = a.diagonal()
+    dinv = 1.0 / np.where(d != 0, d, 1.0)
+    v = np.random.default_rng(0).standard_normal(a.shape[0])
+    rows_rep = np.repeat(np.arange(a.shape[0]), a.row_lengths())
+    lam = 1.0
+    for _ in range(10):
+        w = np.zeros(a.shape[0])
+        np.add.at(w, rows_rep, a.vals * v[a.cols])
+        w *= dinv
+        lam = np.linalg.norm(w)
+        v = w / max(lam, 1e-30)
+    return damping / max(lam, 1e-12)
+
+
 def smooth_prolongator(a: CsrHost, p_t: CsrHost, omega: float) -> CsrHost:
     """P = (I − ω D⁻¹ A) P_t, with the ω the caller shares with its
-    matrix-free transfer applies."""
+    matrix-free transfer applies, or :func:`power_omega`'s."""
     d = a.diagonal()
     dinv = 1.0 / np.where(d != 0, d, 1.0)
     da = spgemm(diag_matrix(omega * dinv), a)
     return spadd(p_t, spgemm(da, p_t), 1.0, -1.0)
+
+
+def build_hierarchy_host(a: CsrHost, max_levels: int, coarse_max: int,
+                         min_agg: int, damping: float,
+                         nullspace: np.ndarray | None = None,
+                         n_equations: int = 1):
+    """Host SA set-up (MueLu Hierarchy::Setup): ([(A_l, P_l), ...],
+    A_coarsest). With ``nullspace`` (n, k), aggregation runs on the node
+    graph of ``n_equations`` dofs a node and every coarse level carries k
+    dofs an aggregate."""
+    levels = []
+    b = int(n_equations)
+    ns = nullspace
+    for _ in range(max_levels - 1):
+        if a.shape[0] <= coarse_max:
+            break
+        if ns is None:
+            agg = aggregate(a, min_agg)
+            if int(agg.max()) + 1 >= a.shape[0]:  # no coarsening progress
+                break
+            p_t = tentative_prolongator(agg)
+        else:
+            agg = aggregate(amalgamate_graph(a, b), min_agg)
+            if (int(agg.max()) + 1) * ns.shape[1] >= a.shape[0]:
+                break
+            p_t, ns = tentative_prolongator_nullspace(agg, b, ns)
+            b = ns.shape[1]  # coarse: k dofs per aggregate-node
+        p_s = smooth_prolongator(a, p_t, power_omega(a, damping))
+        levels.append((a, p_s))
+        a = ptap(a, p_s)
+    return levels, a
+
+
+def _pack_rect(m: CsrHost, dtype, n_rows_pad: int, device):
+    """A transfer (P, Pᵀ, Hiptmair's D) as rectangular ELL of
+    ``n_rows_pad`` rows, the pad rows zero; its apply reads x only below
+    the column count, so x may carry pad rows of its own."""
+    return csr_to_ell(m, dtype=dtype, n_rows_pad=n_rows_pad,
+                      identity_pad_rows=False, device=device)
 
 
 def _pad_rows(v: torch.Tensor, npad: int) -> torch.Tensor:
@@ -255,25 +419,83 @@ class SaAmg(Preconditioner):
                 "aggregation: type 'structured' needs a symmetric "
                 "StencilOp (as the matrix or 'fine: matrix-free operator') "
                 "on a grid with at least one even dim >= 4")
-        if p["nullspace: vectors"] is not None:
-            if agg_t == "structured":
-                raise ValueError("'nullspace: vectors' needs the uncoupled "
-                                 "hierarchy (structured aggregation "
-                                 "carries the constant mode only)")
-            raise NotImplementedError(_UNCOUPLED)
-        if agg_t == "uncoupled" or not can_structured:
-            raise NotImplementedError(_UNCOUPLED)
+        # auto prefers the structured hierarchy wherever a symmetric
+        # StencilOp is at hand and no null space is given
+        self._structured = (agg_t == "structured"
+                            or (agg_t == "auto" and can_structured
+                                and p["nullspace: vectors"] is None))
+        if self._structured and p["nullspace: vectors"] is not None:
+            raise ValueError("'nullspace: vectors' needs the uncoupled "
+                             "hierarchy (structured aggregation carries the "
+                             "constant mode only)")
         fine_op = p["fine: matrix-free operator"]
-        if (fine_op is not None and isinstance(self.a, CsrHost)
+        if (fine_op is not None and not isinstance(self.a, StencilOp)
                 and fine_op.shape != self.a.shape):
             raise ValueError("fine operator shape != matrix shape")
-        self._stencil = cand
+        self._stencil = cand if self._structured else None
+        if not self._structured and not isinstance(self.a, CsrHost):
+            raise TypeError(
+                "SaAmg expects a CsrHost matrix (a bare StencilOp is only "
+                "usable with structured aggregation)")
 
     def _do_compute(self) -> None:
         p = self.params
         self.sweeps = int(p["smoother: sweeps"])
         self.omega = float(p["smoother: damping factor"])
         self.gamma = 2 if p["cycle type"] == "W" else 1
+        if self._structured:
+            self._compute_structured(p)
+        else:
+            self._compute_uncoupled(p)
+
+    def _compute_uncoupled(self, p) -> None:
+        """Stored levels from the host set-up: A_l via ``choose_format``
+        (or the matrix-free fine operator), rectangular ELL P and Pᵀ, the
+        padded inverse diagonals and the coarse pseudo-inverse."""
+        dtype = torch_dtype(p["dtype"] or self.a.vals.dtype)
+        self.dtype = dtype
+        ns = p["nullspace: vectors"]
+        host_levels, a_c = build_hierarchy_host(
+            self.a, int(p["max levels"]), int(p["coarse: max size"]),
+            int(p["aggregation: min agg size"]),
+            float(p["sa: damping factor"]),
+            nullspace=None if ns is None else np.asarray(ns),
+            n_equations=int(p["number of equations"]))
+        self.fine_op = p["fine: matrix-free operator"]
+        self.levels = []
+        for k, (a_l, p_s) in enumerate(host_levels):
+            if k == 0 and self.fine_op is not None:
+                a_dev = self.fine_op
+            else:
+                a_dev = choose_format(a_l, dtype=dtype, device=self.device)
+            npad = a_dev.n_rows_pad
+            d = a_l.diagonal()
+            dinv = np.ones(npad)
+            dinv[:a_l.shape[0]] = 1.0 / np.where(d != 0, d, 1.0)
+            np_c = round_up(p_s.shape[1], ROW_ALIGN)
+            self.levels.append(dict(
+                a=a_dev, dinv=torch.from_numpy(dinv).to(self.device, dtype),
+                p=_pack_rect(p_s, dtype, npad, self.device),
+                pt=_pack_rect(p_s.transpose(), dtype, np_c, self.device),
+                n_f=npad, n_c=np_c, cheb=None))
+        if self.fine_op is None:
+            # the stored fine operator, for the caller's Krylov solve
+            self.fine_op = (self.levels[0]["a"] if self.levels else
+                            choose_format(self.a, dtype=dtype,
+                                          device=self.device))
+        self._set_coarse_inv(a_c, round_up(a_c.shape[0], ROW_ALIGN), dtype)
+        if p["smoother: type"] == "chebyshev":
+            if not isinstance(p["fine: matrix-free operator"], StencilOp):
+                raise ValueError(
+                    "smoother: type 'chebyshev' requires 'fine: matrix-free "
+                    "operator' (the fused polynomial smoother runs on the "
+                    "StencilOp); use the CHEBYSHEV preconditioner for "
+                    "stored matrices")
+            if self.levels:
+                self.levels[0]["cheb"] = fused_stencil_chebyshev(
+                    self.fine_op, degree=self.sweeps + 1, device=self.device)
+
+    def _compute_structured(self, p) -> None:
         op = self._stencil
         dtype = torch_dtype(p["dtype"] or op.dtype)
         self.fine_op = op
@@ -323,20 +545,27 @@ class SaAmg(Preconditioner):
     def state(self) -> dict:
         """The hierarchy's operators and tensors as a plain dict, applied
         with :meth:`apply_state` (``m.apply(r) == m.apply_state(m.state(),
-        r)``); ``convert.amg_state_from_jax`` builds one from the JAX
+        r)``): per level ``a`` and ``dinv``, and ``p``/``pt`` on an
+        uncoupled level; ``convert.amg_state_from_jax`` and
+        ``convert.uncoupled_amg_state_from_jax`` build one from the JAX
         package's ``SaAmg.state()``."""
-        return {"levels": [{"a": lvl["a"], "dinv": lvl["dinv"]}
-                           for lvl in self.levels],
+        return {"levels": [{key: lvl[key] for key in ("a", "dinv", "p", "pt")
+                            if key in lvl} for lvl in self.levels],
                 "coarse_inv": self.coarse_inv}
 
     def apply_state(self, st: dict, r: torch.Tensor) -> torch.Tensor:
-        """Cycle reading the level operators, Jacobi diagonals and coarse
-        inverse from ``st``; grid shapes and weights come from ``self``."""
+        """Cycle reading the level operators, transfers, Jacobi diagonals
+        and coarse inverse from ``st``; a structured level's grid shapes
+        and weights come from ``self``."""
         levels = []
         for lvl, s in zip(self.levels, st["levels"], strict=True):
-            restrict, prolong = _structured_transfers(
-                s["a"], lvl["dims"], lvl["n_c"], lvl["block"],
-                lvl["omega"], s["dinv"])
+            if "p" in s:
+                restrict = functools.partial(spmv, s["pt"])
+                prolong = functools.partial(spmv, s["p"])
+            else:
+                restrict, prolong = _structured_transfers(
+                    s["a"], lvl["dims"], lvl["n_c"], lvl["block"],
+                    lvl["omega"], s["dinv"])
             levels.append(dict(a=s["a"], dinv=s["dinv"], restrict=restrict,
                                prolong=prolong, cheb=lvl.get("cheb")))
         return self._cycle(levels, st["coarse_inv"], 0, r)

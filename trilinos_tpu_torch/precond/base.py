@@ -5,8 +5,9 @@ Counterpart of ``Preconditioner`` in ``trilinos_tpu/precond/base.py``
 ``compute()`` the numeric setup that produces device tensors, and
 ``apply(x)`` is usable directly as the ``prec=`` argument of a solver.
 ``create`` is the string factory (Ifpack2::Factory's dispatch) with the
-reference's full name table; a name whose class is not ported yet raises
-``NotImplementedError`` naming the ROADMAP item that holds it.
+reference's full name table; a name whose class needs the direct solvers,
+not ported yet, raises ``NotImplementedError`` naming the ROADMAP item
+that holds it.
 """
 from __future__ import annotations
 
@@ -14,15 +15,11 @@ import torch
 
 from ..utils.params import ParameterList, make_params
 
-# names of the reference's table whose classes are not ported yet, with the
-# ROADMAP queue 1 item that holds each
+# names of the reference's table whose classes are not ported yet (each
+# needs solvers/direct.py), with the ROADMAP queue 1 item that holds each
 _LATER = {
-    "RILUK": 7, "RBILUK": 7, "ILU": 7, "ILU(0)": 7, "ILUT": 7,
-    "BLOCK RELAXATION": 7, "TRIDI": 7, "BANDED RELAXATION": 7,
-    "DATABASE SCHWARZ": 7, "MT GAUSS-SEIDEL": 7, "GAUSS-SEIDEL": 7,
-    "SCHWARZ": 7, "ADDITIVE SCHWARZ": 7, "TWO-LEVEL SCHWARZ": 7,
-    "FROSCH": 7, "GDSW": 7, "HIPTMAIR": 7, "AMESOS2": 7, "DIRECT": 7,
-    "KLU2": 7, "TACHO": 7, "CHOLMOD": 7,
+    "TWO-LEVEL SCHWARZ": 7, "FROSCH": 7, "GDSW": 7, "AMESOS2": 7,
+    "DIRECT": 7, "KLU2": 7, "TACHO": 7, "CHOLMOD": 7,
 }
 
 
@@ -74,17 +71,37 @@ def create(name: str, a, params: ParameterList | dict | None = None,
     from .amg import SaAmg
     from .block_amg import BlockStructuredAmg
     from .chebyshev import Chebyshev
+    from .containers import BlockRelaxation
+    from .hiptmair import Hiptmair
+    from .ilu import Ilu0
+    from .ilut import Ilut
     from .jacobi import BlockJacobi, Relaxation
+    from .multicolor_gs import MulticolorGaussSeidel
     from .poly import GmresPoly
+    from .schwarz import AdditiveSchwarz
 
     key = name.strip().upper()
     table = {
         "JACOBI": Relaxation,
         "RELAXATION": Relaxation,
         "CHEBYSHEV": Chebyshev,
+        "RILUK": Ilu0,
+        "RBILUK": Ilu0,  # "fact: block size" > 1: block-level ILU(k)
+        "ILU": Ilu0,
+        "ILU(0)": Ilu0,
+        "ILUT": Ilut,
         "GMRESPOLY": GmresPoly,
         "POLY": GmresPoly,
+        "BLOCK RELAXATION": BlockRelaxation,
+        "TRIDI": BlockRelaxation,
+        "BANDED RELAXATION": BlockRelaxation,
+        "DATABASE SCHWARZ": BlockRelaxation,
         "BLOCK_JACOBI": BlockJacobi,
+        "MT GAUSS-SEIDEL": MulticolorGaussSeidel,
+        "GAUSS-SEIDEL": MulticolorGaussSeidel,
+        "SCHWARZ": AdditiveSchwarz,
+        "ADDITIVE SCHWARZ": AdditiveSchwarz,
+        "HIPTMAIR": Hiptmair,
         "SA-AMG": SaAmg,
         "BLOCK SA-AMG": BlockStructuredAmg,
         "MUELU": SaAmg,

@@ -285,7 +285,7 @@ def create_solver(name: str, params=None, comm: Comm | None = None
 
 
 def build(params: ParameterList | dict, a_csr=None, comm: Comm | None = None,
-          device=None):
+          device=None, **prec_kw):
     """Stratimikos-style set-up (Stratimikos' default linear solver factory):
     one parameter list picks the solver and the preconditioner.
 
@@ -296,7 +296,9 @@ def build(params: ParameterList | dict, a_csr=None, comm: Comm | None = None,
 
     Returns (solver_manager, computed preconditioner or None). ``a_csr``
     (a ``CsrHost``) is needed when a preconditioner is asked for;
-    ``device`` goes to the preconditioner (None: the card)."""
+    ``device`` goes to the preconditioner (None: the card), and so do
+    ``prec_kw``, the constructor's other keywords (HIPTMAIR's discrete
+    gradient ``aux_op``; the reference's ``build`` has no way to pass it)."""
     p = make_params(params)
     sname = p.get("Linear Solver Type", "CG")
     mgr = SolverManager(sname, p.sublist("Solver Types").sublist(sname), comm)
@@ -308,5 +310,6 @@ def build(params: ParameterList | dict, a_csr=None, comm: Comm | None = None,
         if a_csr is None:
             raise ValueError("preconditioner requested but no matrix given")
         pparams = p.sublist("Preconditioner Types").sublist(pname)
-        prec = precond.create(pname, a_csr, pparams, device=device).compute()
+        prec = precond.create(pname, a_csr, pparams, device=device,
+                              **prec_kw).compute()
     return mgr, prec
