@@ -47,7 +47,17 @@ CG + CHEBYSHEV, and GMRES(30) + GMRESPOLY at a fixed 60 iterations, whose
 true residual must fall below plain GMRES(30)'s. LSQR, Block CG, config
 4 and the Chebyshev solve run again through the plain versions.
 
-Every hierarchy set-up must be served by the native SpGEMM. Each path
+Then the stored-matrix path (BASELINE config 3's twin on a Matrix Market
+file it is given and must leave untouched, uncoupled SA-AMG, every
+preconditioner name through ``build()``, two-level Schwarz among them, each
+beside the JAX package's CPU count) and the direct solvers: the native
+sparse LU and Cholesky on the host at 16,384 and 65,536 rows, the Amesos2
+names through ``build()`` (a dense inverse on the card), two-level Schwarz
+CG on laplace2d 256² beside one-level, a complex solve through its real
+form (``komplex_entry``), ``dense_solve`` and Teko's blocked GMRES.
+
+Every hierarchy set-up must be served by the native SpGEMM, and every
+factorization by the native library. Each path
 is driven with the launch counts set to 0 just before it and read just
 after. It times each warm solve, times each kernel (device time of
 CUDA-graph replays, and the host path of calls from Python) beside its
@@ -137,7 +147,18 @@ UAMG_DIMS = (128, 128, 128)  # uncoupled SA-AMG PCG on a stored Laplace3D
 UAMG_X_TOL = 1e-4  # kernel and plain f32 solves stop at rtol 1e-5
 NS_MAXITER = 400  # null-space uncoupled SA-AMG PCG on the elasticity matrix
 MAXWELL_DIMS = (128, 128)  # HIPTMAIR's curl-curl problem, 33,024 edges
-# every preconditioner name this slice ports, through build() with GMRES(30)
+
+
+def box_ids(nx, k):
+    """Subdomain ids of k × k square boxes on an nx × nx row-major grid (x
+    fastest), by index arithmetic: the port has no partitioner yet."""
+    i = np.arange(nx * nx)
+    w = nx // k
+    return (i // nx // w) * k + (i % nx) // w
+
+
+# the tenth slice's names and the eleventh's two-level Schwarz, through
+# build() with GMRES(30)
 # at rtol 1e-8, maxiter 1000, f64, on the config-3 matrix (HIPTMAIR on
 # maxwell2d with conductivity 10^U(-3, 0), seed 9): (label, name,
 # parameters, GMRES iterations of the JAX package on the CPU in f64 from
@@ -171,8 +192,64 @@ BUILD_CASES = [
      {"schwarz: num subdomains": 16, "schwarz: combine mode": "add"}, 872),
     ("HIPTMAIR", "HIPTMAIR", {"hiptmair: aux preconditioner": "SA-AMG",
                               "hiptmair: damping factor": 0.4}, 60),
+    # 16 subdomains as 4 × 4 boxes of 32²: contiguous row chunks would be
+    # slabs, on which the reference's RGDSW basis is rank-deficient
+    ("TWO-LEVEL SCHWARZ rgdsw hybrid RAS", "TWO-LEVEL SCHWARZ",
+     {"schwarz: num subdomains": 16,
+      "schwarz: subdomain ids": box_ids(CONFIG3_NX, 4)}, 115),
+    ("FROSCH constant hybrid RAS", "FROSCH",
+     {"schwarz: num subdomains": 16,
+      "schwarz: subdomain ids": box_ids(CONFIG3_NX, 4),
+      "coarse space: type": "constant"}, 119),
+    ("GDSW rgdsw additive RAS", "GDSW",
+     {"schwarz: num subdomains": 16,
+      "schwarz: subdomain ids": box_ids(CONFIG3_NX, 4),
+      "coarse space: coupling": "additive"}, 160),
 ]
 BUILD_RTOL = 1e-8
+# the eleventh slice: the direct solvers and what they free
+DIRECT_HOST_RHS = 4  # seeded right-hand sides of the host direct solves
+DIRECT_HOST_TRUE_MAX = 1e-10  # each column's true relative residual
+CHOL_NX = 256  # SparseCholesky on laplace2d 256² (65,536 rows)
+# the Amesos2 names through build() at 64² (4,096 rows: the dense inverse
+# is n² by the reference's design, 134 MB in f64): (name, solver, matrix,
+# iterations of the JAX package on the CPU in f64 from
+# scripts/stored_path_cpu_counts.py), rtol 1e-8, f64
+DIRECT_NX = 64
+DIRECT_CASES = [("DIRECT", "GMRES", "recirc2d", 1),
+                ("AMESOS2", "GMRES", "recirc2d", 1),
+                ("KLU2", "GMRES", "recirc2d", 1),
+                ("TACHO", "CG", "laplace2d", 1),
+                ("CHOLMOD", "CG", "laplace2d", 1)]
+DIRECT_TRUE_MAX = 1e-7
+# two-level Schwarz CG on laplace2d CHOL_NX² with the "add" combine on
+# TL_BOXES × TL_BOXES boxes, beside one-level Schwarz on the same partition
+# (CPU f64 counts: two-level, one-level)
+TL_BOXES = 8
+TL_CPU_ITERS = (45, 94)
+TL_RTOL = 1e-8
+# Komplex: the complex shifted Laplacian laplace2d 128² + 2i·I through a
+# complex Matrix Market file, GMRES(30) + RILUK on the real form
+KOMPLEX_NX = 128
+KOMPLEX_SHIFT = 2.0
+KOMPLEX_CPU_ITERS = 15
+KOMPLEX_TRUE_MAX = 1e-7
+DENSE_N = 4096  # dense_solve (Pliris on one card), f64
+DENSE_TRUE_MAX = 1e-10
+TEKO_CPU_ITERS = 11  # blocked GMRES(40) + block Gauss-Seidel, rtol 1e-10
+
+
+def teko_system():
+    """The JAX package's Teko test system (blocks 48 + 32, seed 42, f64):
+    the four blocks, the dense matrix and the right-hand side."""
+    rng = np.random.default_rng(42)
+    n0, n1 = 48, 32
+    a00 = rng.standard_normal((n0, n0)) * 0.1 + 4 * np.eye(n0)
+    a11 = rng.standard_normal((n1, n1)) * 0.1 + 3 * np.eye(n1)
+    a01 = rng.standard_normal((n0, n1)) * 0.2
+    a10 = rng.standard_normal((n1, n0)) * 0.2
+    dense = np.block([[a00, a01], [a10, a11]])
+    return (a00, a01, a10, a11), dense, rng.standard_normal(n0 + n1)
 BATCH, SAMPLES = 10, 25
 
 
@@ -421,12 +498,20 @@ def main():
                                           cheb_entry, elasticity_entry,
                                           entry, factory_entry,
                                           fused_cg_entry, gmres_entry,
+                                          komplex_entry,
                                           mm_block_gmres_entry,
                                           pipelined_cg_entry, sstep_entry,
                                           uncoupled_amg_entry)
     from trilinos_tpu_torch.galeri import (elasticity2d, elasticity3d,
-                                           laplace3d, recirc2d,
+                                           laplace2d, laplace3d, recirc2d,
                                            rigid_body_modes)
+    from trilinos_tpu_torch.io import write_sparse
+    from trilinos_tpu_torch.ops import komplex
+    from trilinos_tpu_torch.precond import (BlockedOperator2x2,
+                                            TwoLevelSchwarz,
+                                            block_lower_triangular_prec)
+    from trilinos_tpu_torch.solvers import (NotSpdError, SparseCholesky,
+                                            SparseLu, dense_solve, gmres)
     from trilinos_tpu_torch.galeri.stencils import (cross3d_stencil,
                                                     maxwell2d,
                                                     star2d_stencil)
@@ -1667,13 +1752,20 @@ def main():
     mm_mod.read_sparse.native_calls = mm_mod.read_sparse.python_calls = 0
     ilu_mod.ilu0_factor.native_calls = ilu_mod.ilu0_factor.python_calls = 0
     with tempfile.TemporaryDirectory() as tmp:
+        # a given file: written here once, then only read by the entry
         mtx = pathlib.Path(tmp) / f"recirc2d_{CONFIG3_NX}.mtx"
+        write_sparse(mtx, a3h, comment=f"Galeri recirc2d({CONFIG3_NX}, "
+                                       f"{CONFIG3_NX})")
+        given = (mtx.read_bytes(), mtx.stat().st_mtime_ns)
         t0 = time.perf_counter()
-        c3step, (c3b,) = mm_block_gmres_entry(CONFIG3_NX, device="cuda",
-                                              path=mtx)
+        c3step, (c3b,) = mm_block_gmres_entry(device="cuda",
+                                              matrix_file=mtx)
         torch.cuda.synchronize()
         c3_setup_s = time.perf_counter() - t0
-        mtx_bytes = mtx.stat().st_size
+        untouched = ((mtx.read_bytes(), mtx.stat().st_mtime_ns) == given
+                     and sorted(p_.name for p_ in pathlib.Path(tmp).iterdir())
+                     == [mtx.name])
+        mtx_bytes = len(given[0])
     back = c3step.matrix
     same = (back.shape == a3h.shape
             and all(np.array_equal(getattr(back, f), getattr(a3h, f))
@@ -1688,11 +1780,12 @@ def main():
         f"{facts[0]}, Python {facts[1]}; factors L "
         f"{type(ilu3._l).__name__} {len(getattr(ilu3._l, 'offsets', ()))} "
         f"diags, U {type(ilu3._u).__name__} "
-        f"{len(getattr(ilu3._u, 'offsets', ()))} diags; set-up (write, read, "
-        f"ELL, ILU) {c3_setup_s:.2f} s")
-    if not same or reads != (1, 0) or facts != (1, 0):
+        f"{len(getattr(ilu3._u, 'offsets', ()))} diags; set-up from the "
+        f"given file (read, ELL, ILU) {c3_setup_s:.2f} s; the file's bytes "
+        f"and mtime unchanged, nothing written beside it: {untouched}")
+    if not same or reads != (1, 0) or facts != (1, 0) or not untouched:
         fail(f"Matrix Market round trip: bitwise {same}, reader paths "
-             f"{reads}, ILU(0) paths {facts}")
+             f"{reads}, ILU(0) paths {facts}, file untouched {untouched}")
     if not (isinstance(ilu3._l, DiaMatrix) and isinstance(ilu3._u,
                                                           DiaMatrix)):
         fail("config 3: the ILU factors are not DIA")
@@ -1856,6 +1949,227 @@ def main():
         build_runs[label] = dict(iters=int(bres_.iters), cpu=cpu_iters,
                                  first=bms_, setup=bset_s, launches=blaunch_)
         del bres_, bstep_
+
+    # -- 7q. the direct solvers on the host at real size: native sparse LU on
+    # config 3's matrix, native sparse Cholesky on laplace2d 256²
+    al2 = laplace2d(CHOL_NX, CHOL_NX)
+    direct_host = {}
+    for label, cls, host, hname in (
+            ("SparseLu", SparseLu, a3h, f"recirc2d {grid3}"),
+            ("SparseCholesky", SparseCholesky, al2,
+             f"laplace2d {CHOL_NX}x{CHOL_NX}")):
+        cls.native_calls = cls.python_calls = 0
+        t0 = time.perf_counter()
+        fac = cls(host).factor()
+        f_s = time.perf_counter() - t0
+        paths = (cls.native_calls, cls.python_calls)
+        bh = np.random.default_rng(60).standard_normal(
+            (host.shape[0], DIRECT_HOST_RHS))
+        t0 = time.perf_counter()
+        xh = fac.solve(bh)
+        s_s = time.perf_counter() - t0
+        csr_h = csr_f64(host)
+        res_h = [host_residual(csr_h, torch.from_numpy(xh[:, c]).to("cuda"),
+                               torch.from_numpy(bh[:, c]).to("cuda"))
+                 for c in range(DIRECT_HOST_RHS)]
+        log(f"{label} on {hname} ({host.shape[0]} rows, f64): factor "
+            f"{f_s:.3f} s, nnz_factors {fac.nnz_factors}, path native "
+            f"{paths[0]}, Python {paths[1]}; {DIRECT_HOST_RHS} solves "
+            f"{s_s:.3f} s; true relative residuals "
+            f"{[f'{r:.3e}' for r in res_h]}")
+        if paths != (1, 0):
+            fail(f"{label}: the native factorization did not serve {paths}")
+        if not max(res_h) <= DIRECT_HOST_TRUE_MAX:
+            fail(f"{label}: true residuals {res_h}")
+        direct_host[label] = dict(factor_s=f_s, solve_s=s_s,
+                                  nnz=fac.nnz_factors, matrix=hname)
+        del fac, csr_h
+    try:
+        SparseCholesky(a3h).factor()
+    except NotSpdError as exc:
+        log(f"SparseCholesky on recirc2d {grid3} refused: {exc}")
+    else:
+        fail("SparseCholesky factored the nonsymmetric recirc2d")
+
+    # -- 7r. the Amesos2 names through build(): DIRECT, AMESOS2, KLU2 with
+    # GMRES(30) on recirc2d 64², TACHO and CHOLMOD with CG on laplace2d 64²;
+    # the apply is a dense n² inverse on the card
+    d_hosts = {"recirc2d": recirc2d(DIRECT_NX, DIRECT_NX),
+               "laplace2d": laplace2d(DIRECT_NX, DIRECT_NX)}
+    d_ops = {k: choose_format(v, device="cuda") for k, v in d_hosts.items()}
+    d_csr = {k: csr_f64(v) for k, v in d_hosts.items()}
+    direct_runs = {}
+    for name, solver, matrix, cpu_iters in DIRECT_CASES:
+        sp = {"Convergence Tolerance": BUILD_RTOL, "Maximum Iterations": 1000}
+        if solver == "GMRES":
+            sp["Num Blocks"] = 30
+        for cls in (SparseLu, SparseCholesky):
+            cls.native_calls = cls.python_calls = 0
+        t0 = time.perf_counter()
+        dstep, (db,) = build_entry(solver, name, a=d_hosts[matrix],
+                                   dia=d_ops[matrix], params=sp,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        dset_s = time.perf_counter() - t0
+        dpaths = (SparseLu.native_calls + SparseCholesky.native_calls,
+                  SparseLu.python_calls + SparseCholesky.python_calls)
+        dres, dms, dlaunch = drive(dstep, (db,))
+        d_true = host_residual(d_csr[matrix], dres.x, db)
+        conv = bool(torch.as_tensor(dres.converged).all())
+        inv = dstep.preconditioner.inv_dense
+        xg = randn(inv.shape[0], torch.float64, seed=70)
+        gemv_ms = graph_ms(lambda: inv @ xg)
+        gemv_bound = inv.numel() * inv.element_size() / HBM_BYTES_PER_MS
+        log(f"build() {solver} + {name} on {matrix} {DIRECT_NX}x{DIRECT_NX} "
+            f"f64: set-up (factor, {inv.shape[0]} host solves, upload) "
+            f"{dset_s:.2f} s, factorization native {dpaths[0]}, Python "
+            f"{dpaths[1]}; converged {conv} iters {int(dres.iters)} (JAX "
+            f"package, CPU f64: {cpu_iters}) first solve {dms:.1f} ms "
+            f"launches {dlaunch or 'none'}; true relative residual "
+            f"{d_true:.3e}; inverse GEMV {gemv_ms:.4f} ms (bound "
+            f"{gemv_bound:.4f} ms, {inv.shape[0]}² x 8 bytes at 3.35 TB/s)")
+        if dpaths != (1, 0):
+            fail(f"build() + {name}: the native factorization did not serve "
+                 f"{dpaths}")
+        if not conv or not d_true <= DIRECT_TRUE_MAX \
+                or int(dres.iters) != cpu_iters:
+            fail(f"build() {solver} + {name}: converged {conv}, true residual "
+                 f"{d_true:.3e}, {int(dres.iters)} iterations (CPU "
+                 f"{cpu_iters})")
+        direct_runs[name] = dict(setup=dset_s, iters=int(dres.iters),
+                                 first=dms, gemv=gemv_ms, bound=gemv_bound)
+        del dstep, dres, inv
+    del d_csr
+
+    # -- 7s. two-level Schwarz CG on laplace2d 256² ("add" combine, 8 x 8 box
+    # subdomains, RGDSW, hybrid coupling: its A·x runs the DIA kernel) beside
+    # one-level Schwarz on the same partition (its first level)
+    grid_tl = f"{CHOL_NX}x{CHOL_NX}"
+    t0 = time.perf_counter()
+    tlm = TwoLevelSchwarz(al2, {
+        "schwarz: num subdomains": TL_BOXES ** 2,
+        "schwarz: subdomain ids": box_ids(CHOL_NX, TL_BOXES),
+        "schwarz: combine mode": "add"}, device="cuda").compute()
+    torch.cuda.synchronize()
+    tl_setup_s = time.perf_counter() - t0
+    tl_op = choose_format(al2, device="cuda")
+    tl_host = np.zeros(tl_op.n_rows_pad)
+    tl_host[:al2.shape[0]] = np.random.default_rng(0).standard_normal(
+        al2.shape[0])
+    tlb = torch.from_numpy(tl_host).to("cuda")
+    tl_csr = csr_f64(al2)
+
+    def tl_step(m):
+        def run(b_vec):
+            return cg_solve(lambda v: matvec.spmv(tl_op, v), b_vec, prec=m,
+                            rtol=TL_RTOL, maxiter=2000)
+        return run
+
+    tl_runs = {}
+    for label, m in (("two-level", tlm), ("one-level", tlm.level1)):
+        res_, ms_, launch_ = drive(tl_step(m), (tlb,))
+        true_ = host_residual(tl_csr, res_.x, tlb)
+        tl_runs[label] = dict(iters=int(res_.iters), first=ms_,
+                              launches=launch_, true=true_,
+                              conv=bool(res_.converged))
+        del res_
+    log(f"CG on laplace2d {grid_tl} f64 with Schwarz ({TL_BOXES ** 2} boxes of "
+        f"{CHOL_NX // TL_BOXES}², overlap 1, add): two-level (RGDSW, hybrid, "
+        f"set-up {tl_setup_s:.2f} s, Φ {tuple(tlm.phi.shape)}, A stored as "
+        f"{type(tlm.a_dev).__name__}) {tl_runs['two-level']['iters']} "
+        f"iterations, one-level {tl_runs['one-level']['iters']} (JAX package, "
+        f"CPU f64: {TL_CPU_ITERS[0]}, {TL_CPU_ITERS[1]}); first solves "
+        f"{tl_runs['two-level']['first']:.1f} ms, "
+        f"{tl_runs['one-level']['first']:.1f} ms; true relative residuals "
+        f"{tl_runs['two-level']['true']:.3e}, "
+        f"{tl_runs['one-level']['true']:.3e}; launches "
+        f"{tl_runs['two-level']['launches']}")
+    if not all(r["conv"] and r["true"] <= 10 * TL_RTOL
+               for r in tl_runs.values()):
+        fail(f"two-level Schwarz CG: {tl_runs}")
+    if not tl_runs["two-level"]["iters"] < tl_runs["one-level"]["iters"]:
+        fail("two-level Schwarz took no fewer iterations than one-level")
+    if not tl_runs["two-level"]["launches"].get("dia_spmv"):
+        fail("the two-level hybrid's A·x never launched dia_spmv")
+    tlwarm_ms = warm(tl_step(tlm), tlb)
+    del tl_csr
+
+    # -- 7t. Komplex: the complex shifted Laplacian through a complex Matrix
+    # Market file, solved as its real form with GMRES(30) + RILUK
+    grid_k = f"{KOMPLEX_NX}x{KOMPLEX_NX}"
+    mm_mod.read_sparse.native_calls = mm_mod.read_sparse.python_calls = 0
+    t0 = time.perf_counter()
+    kstep, (kbz,) = komplex_entry(KOMPLEX_NX, KOMPLEX_SHIFT, device="cuda")
+    k_read_s = time.perf_counter() - t0
+    kreads = (mm_mod.read_sparse.native_calls,
+              mm_mod.read_sparse.python_calls)
+    kerf = komplex.complex_matrix_to_real(kstep.matrix)
+    kop = choose_format(kerf, device="cuda")
+    (kz, kres), kms, klaunch = drive(kstep, (kbz,))
+    ka = kstep.matrix
+    kr = np.zeros(ka.shape[0], complex)
+    np.add.at(kr, ka._rows(), ka.vals * kz[ka.cols])
+    k_true = float(np.linalg.norm(kbz - kr) / np.linalg.norm(kbz))
+    kconv = bool(kres.converged)
+    log(f"Komplex: laplace2d {grid_k} + {KOMPLEX_SHIFT}i·I ({ka.nnz} complex "
+        f"entries) written and read back as a complex Matrix Market file "
+        f"({k_read_s:.2f} s; reader native {kreads[0]}, Python {kreads[1]}); "
+        f"real form {kerf.shape[0]} rows, {kerf.nnz} entries, stored as "
+        f"{type(kop).__name__}"
+        + (f" ({len(kop.offsets)} diagonals, offsets ±{ka.shape[0]} hold the "
+           f"shift)" if isinstance(kop, DiaMatrix) else "")
+        + f"; GMRES(30) + RILUK (set-up included): converged {kconv} iters "
+        f"{int(kres.iters)} (JAX package, CPU f64: {KOMPLEX_CPU_ITERS}) "
+        f"first solve {kms:.1f} ms launches {klaunch or 'none'}; complex "
+        f"true relative residual {k_true:.3e}")
+    if not kconv or int(kres.iters) != KOMPLEX_CPU_ITERS \
+            or not k_true <= KOMPLEX_TRUE_MAX or kreads != (0, 1):
+        fail(f"Komplex: converged {kconv}, {int(kres.iters)} iterations, "
+             f"true residual {k_true:.3e}, reader paths {kreads}")
+    if isinstance(kop, DiaMatrix) and not klaunch.get("dia_spmv"):
+        fail("Komplex: the DIA real form never launched dia_spmv")
+    kwarm_ms = warm(kstep, kbz)
+    kres_iters = int(kres.iters)
+    del kres
+
+    # -- 7u. Pliris on one card: dense_solve of a diagonally dominant f64
+    # system
+    ad = randn((DENSE_N, DENSE_N), torch.float64, seed=71)
+    ad += DENSE_N * torch.eye(DENSE_N, device="cuda", dtype=torch.float64)
+    bd = randn(DENSE_N, torch.float64, seed=72)
+    xd = dense_solve(ad, bd)
+    dense_ms = warm(dense_solve, ad, bd)
+    d_res = float(torch.linalg.vector_norm(bd - ad @ xd)
+                  / torch.linalg.vector_norm(bd))
+    log(f"dense_solve {DENSE_N}² f64 (torch.linalg.solve): {dense_ms:.2f} ms "
+        f"warm; true relative residual {d_res:.3e}")
+    if not d_res <= DENSE_TRUE_MAX:
+        fail(f"dense_solve: true residual {d_res:.3e}")
+    del ad, bd, xd
+
+    # -- 7v. Teko: GMRES(40) on the blocked 48 + 32 system with block
+    # Gauss-Seidel (exact diagonal-block inverses) on the card; the count
+    # may move by one, GMRES summing in another order there
+    blocks, tdense, tb_host = teko_system()
+    t00, t01, t10, t11 = (torch.from_numpy(m_).to("cuda") for m_ in blocks)
+    i00, i11 = torch.linalg.inv(t00), torch.linalg.inv(t11)
+    n0 = t00.shape[0]
+    tblk = BlockedOperator2x2(lambda v: t00 @ v, lambda v: t01 @ v,
+                              lambda v: t10 @ v, lambda v: t11 @ v, n0)
+    tprec = block_lower_triangular_prec(lambda v: i00 @ v, tblk.a10,
+                                        lambda v: i11 @ v, n0)
+    tb = torch.from_numpy(tb_host).to("cuda")
+    tres = gmres(tblk, tb, prec=tprec, restart=40, rtol=1e-10, maxiter=400)
+    t_true = float(np.linalg.norm(tb_host - tdense @ tres.x.cpu().numpy())
+                   / np.linalg.norm(tb_host))
+    log(f"Teko blocked GMRES(40) + block Gauss-Seidel (48 + 32, f64): "
+        f"converged {bool(tres.converged)} iters {int(tres.iters)} (JAX "
+        f"package, CPU f64: {TEKO_CPU_ITERS}); true relative residual "
+        f"{t_true:.3e}")
+    if not bool(tres.converged) or not t_true <= 1e-9 \
+            or abs(int(tres.iters) - TEKO_CPU_ITERS) > 1:
+        fail(f"Teko: converged {bool(tres.converged)}, {int(tres.iters)} "
+             f"iterations, true residual {t_true:.3e}")
 
     # -- 8. timings at the main paths' shapes --------------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -2145,6 +2459,56 @@ def main():
              launches=c3launch["chol_inv_small"],
              per_step=c3launch["chol_inv_small"] / max(c3steps, 1),
              err=stored_err["chol2"])]
+    # the eleventh slice's shapes: the DIA SpMV on the two-level hybrid's
+    # matrix (laplace2d 256², f64) and on the Komplex real form (f64), each
+    # held to its plain version, each library call to the plain version
+    # first
+    x_tl = randn(tlm.a_dev.n_rows_pad, torch.float64, seed=43)
+    csr_tl = dia_as_csr(tlm.a_dev)
+    nd_tl = len(tlm.a_dev.offsets)
+    dslice_err = {"tl": check(
+        f"dia, two-level hybrid A of laplace2d {grid_tl} ({nd_tl} diags) "
+        f"f64", dia_spmv(tlm.a_dev, x_tl), dia_spmv_plain(tlm.a_dev, x_tl),
+        TOL[torch.float64])}
+    check("sparse CSR library call vs dia (two-level hybrid A, f64)",
+          csr_tl @ x_tl, dia_spmv_plain(tlm.a_dev, x_tl), 1e-12)
+    tl_dia = tl_runs["two-level"]["launches"].get("dia_spmv", 0)
+    rows.append(dict(
+        name="dia_spmv", source="dia_spmv.cu", replaces="dia_spmv.py:273",
+        also_replaces="dia_spmv.py:524",
+        shape=f"two-level Schwarz hybrid A·x, laplace2d {grid_tl}, "
+              f"{tlm.a_dev.n_rows_pad} rows x {nd_tl} diags f64",
+        bytes=(nd_tl + 2) * tlm.a_dev.n_rows_pad * 8,
+        flops=2 * nonzeros(tlm.a_dev), flops_per_ms=F64_FLOPS_PER_MS,
+        kernel=lambda: dia_spmv(tlm.a_dev, x_tl),
+        plain=lambda: dia_spmv_plain(tlm.a_dev, x_tl),
+        library=lambda: csr_tl @ x_tl, launches=tl_dia,
+        per_step=tl_dia / max(tl_runs["two-level"]["iters"], 1),
+        err=dslice_err["tl"]))
+    if isinstance(kop, DiaMatrix):
+        x_k = randn(kop.n_rows_pad, torch.float64, seed=44)
+        csr_k = dia_as_csr(kop)
+        nd_k = len(kop.offsets)
+        dslice_err["komplex"] = check(
+            f"dia, Komplex real form {kop.n_rows_pad} rows ({nd_k} diags) "
+            f"f64", dia_spmv(kop, x_k), dia_spmv_plain(kop, x_k),
+            TOL[torch.float64])
+        check("sparse CSR library call vs dia (Komplex real form, f64)",
+              csr_k @ x_k, dia_spmv_plain(kop, x_k), 1e-12)
+        k_dia = klaunch.get("dia_spmv", 0)
+        rows.append(dict(
+            name="dia_spmv", source="dia_spmv.cu",
+            replaces="dia_spmv.py:273", also_replaces="dia_spmv.py:524",
+            shape=f"Komplex real form of laplace2d {grid_k} + "
+                  f"{KOMPLEX_SHIFT}i·I, {kop.n_rows_pad} rows x {nd_k} "
+                  f"diags f64 (operator and RILUK factors share the count)",
+            bytes=(nd_k + 2) * kop.n_rows_pad * 8,
+            flops=2 * nonzeros(kop), flops_per_ms=F64_FLOPS_PER_MS,
+            kernel=lambda: dia_spmv(kop, x_k),
+            plain=lambda: dia_spmv_plain(kop, x_k),
+            library=lambda: csr_k @ x_k, launches=k_dia,
+            per_step=k_dia / max(int(kres_iters), 1),
+            err=dslice_err["komplex"]))
     # fused kernels the polynomial wrappers launched on their own paths
     fused_launches = {"stencil_poly": c_fused, "stencil_powers": s_fused}
     # the empty kernel and chol_inv_small at the block path's k and at 32:
@@ -2381,6 +2745,25 @@ def main():
         log(f"build() GMRES(30) + {label}: {run['iters']} iterations (JAX "
             f"package, CPU f64: {run['cpu']}), set-up {run['setup']:.2f} s, "
             f"first solve {run['first']:.1f} ms, launches {run['launches']}")
+    for label, run in direct_host.items():
+        log(f"{label} on {run['matrix']}: factor {run['factor_s']:.3f} s, "
+            f"{DIRECT_HOST_RHS} solves {run['solve_s']:.3f} s, nnz_factors "
+            f"{run['nnz']}")
+    for name, run in direct_runs.items():
+        log(f"build() + {name} ({DIRECT_NX}x{DIRECT_NX}, f64): set-up "
+            f"{run['setup']:.2f} s, {run['iters']} iterations, first solve "
+            f"{run['first']:.1f} ms, inverse GEMV {run['gemv']:.4f} ms "
+            f"(bound {run['bound']:.4f} ms)")
+    log(f"two-level Schwarz CG laplace2d {grid_tl} f64: set-up "
+        f"{tl_setup_s:.2f} s; solve {tlwarm_ms:.2f} ms wall, "
+        f"{tlwarm_ms / max(tl_runs['two-level']['iters'], 1):.3f} ms/iter "
+        f"over {tl_runs['two-level']['iters']} iterations (one-level: "
+        f"{tl_runs['one-level']['iters']} iterations, first solve "
+        f"{tl_runs['one-level']['first']:.1f} ms)")
+    log(f"Komplex {grid_k} (GMRES(30) + RILUK on the real form, set-up "
+        f"included): {kwarm_ms:.2f} ms wall over {kres_iters} iterations "
+        f"(first solve {kms:.1f} ms); dense_solve {DENSE_N}² f64 "
+        f"{dense_ms:.2f} ms")
 
     # -- 9. one solve of each path under the profiler: device time by kernel
     # (last, so that it cannot disturb the timings above)
@@ -2412,6 +2795,10 @@ def main():
             focus="dia_kernel")
     profile(f"null-space uncoupled AMG-PCG {grid_e} solve",
             lambda: ns_step(eb, nsst), focus="dia_kernel")
+    profile(f"two-level Schwarz CG {grid_tl} solve",
+            lambda: tl_step(tlm)(tlb), focus="dia_kernel")
+    profile(f"Komplex {grid_k} solve (set-up included)", lambda: kstep(kbz),
+            focus="dia_kernel")
 
     log(f"chip_smoke total: {time.perf_counter() - t_main:.1f} s")
     log(card)

@@ -5,7 +5,9 @@
 Runs the whole script at small sizes (256³ → 32³, the elasticity, plane,
 BDIA, config 2 and config 4 grids cut as below, the uncoupled AMG's 128³ →
 16³, config 3's 128² → 32² with the CPU's 29 block steps, maxwell2d 128² →
-24², other 128³ cases → 24³) on the CPU: every kernel wrapper takes its launch path, and each launch computes
+24², other 128³ cases → 24³, the direct solvers' laplace2d 256² → 32² and
+64² → 16², Komplex 128² → 24² with the CPU's count there, the dense solve
+4096² → 256²) on the CPU: every kernel wrapper takes its launch path, and each launch computes
 the plain version instead (so the launch counters move and every gate,
 count and log line of the script runs); CUDA events time the host, CUDA
 graphs become plain calls, the profiler records the CPU only, and
@@ -131,6 +133,11 @@ reps = [("DIMS = (256, 256, 256)", "DIMS = (32, 32, 32)"),
         ("CONFIG3_NX = 128", "CONFIG3_NX = 32"),
         ("CONFIG3_CPU_STEPS = 649", "CONFIG3_CPU_STEPS = 29"),
         ("MAXWELL_DIMS = (128, 128)", "MAXWELL_DIMS = (24, 24)"),
+        ("CHOL_NX = 256", "CHOL_NX = 32"),
+        ("DIRECT_NX = 64", "DIRECT_NX = 16"),
+        ("KOMPLEX_NX = 128", "KOMPLEX_NX = 24"),
+        ("KOMPLEX_CPU_ITERS = 15", "KOMPLEX_CPU_ITERS = 14"),
+        ("DENSE_N = 4096", "DENSE_N = 256"),
         ("(128, 128, 128)", "(24, 24, 24)"),
         ('"cuda"', '"cpu"'),
         (",\n            torch.profiler.ProfilerActivity.CUDA]", "]")]

@@ -33,8 +33,8 @@ from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
                                       bsr_gmres_entry, cheb_entry,
                                       elasticity_entry, entry,
                                       fused_cg_entry, gmres_entry,
-                                      mm_block_gmres_entry, sstep_entry,
-                                      uncoupled_amg_entry)
+                                      komplex_entry, mm_block_gmres_entry,
+                                      sstep_entry, uncoupled_amg_entry)
 from trilinos_tpu_torch.galeri import (elasticity3d, laplace3d,
                                        rigid_body_modes)
 from trilinos_tpu_torch.ops import (bdia_spmm, bdia_spmv, cg_fused_iteration,
@@ -171,6 +171,48 @@ def test_mm_block_gmres_entry_matches_jax(tmp_path):
     assert (np.linalg.norm(r, axis=0)
             / np.linalg.norm(b.numpy()[:n], axis=0)).max() <= 1e-6
     assert dia_spmv.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["mtx", "hb"])
+def test_mm_block_gmres_entry_reads_a_given_file(tmp_path, kind):
+    """Config 3 on a given file, Matrix Market or Harwell-Boeing (recirc2d
+    24² written by the test): the block steps and x of the JAX package's
+    pipeline on the same file, the file's bytes and mtime unchanged, and
+    no file written beside it."""
+    import os
+
+    from test_torch_io import write_hb
+    from trilinos_tpu import precond as jprec
+    from trilinos_tpu.galeri import recirc2d as j_recirc2d
+    from trilinos_tpu.io import read_hb as j_read_hb
+    from trilinos_tpu.io import read_sparse as j_read_sparse
+    from trilinos_tpu.io import write_sparse as j_write_sparse
+    from trilinos_tpu.ops import csr_to_ell as j_csr_to_ell
+    from trilinos_tpu.solvers import block_gmres as j_block_gmres
+
+    path = tmp_path / f"given.{kind}"
+    if kind == "mtx":
+        j_write_sparse(str(path), j_recirc2d(24, 24))
+    else:
+        write_hb(path, j_recirc2d(24, 24), "RUA")
+    os.utime(path, (1_000_000_000, 1_000_000_000))
+    data, mtime = path.read_bytes(), path.stat().st_mtime_ns
+    step, (b,) = mm_block_gmres_entry(device="cpu", matrix_file=path)
+    res = step(b)
+    assert path.read_bytes() == data and path.stat().st_mtime_ns == mtime
+    assert sorted(p.name for p in tmp_path.iterdir()) == [path.name]
+    a = (j_read_sparse if kind == "mtx" else j_read_hb)(str(path))
+    np.testing.assert_array_equal(step.matrix.vals, a.vals)
+    jm = jprec.Ilu0(a, {"fact: sweeps": 20}).compute()
+    dev = j_csr_to_ell(a)
+    jres = j_block_gmres(lambda x: j_spmv(dev, x, impl="xla"),
+                         jnp.asarray(b.numpy()), prec=jm, num_blocks=60,
+                         max_restarts=20, rtol=1e-8, ortho="DGKS")
+    assert res.iters == int(jres.iters) and bool(res.converged.all())
+    assert rel(res.x.numpy(), jres.x) <= 1e-8
+    with pytest.raises(ValueError, match="not both"):
+        mm_block_gmres_entry(device="cpu", path=tmp_path / "x.mtx",
+                             matrix_file=path)
 
 
 @pytest.mark.parametrize("dtype,max_diters,tol", [
@@ -330,7 +372,15 @@ def test_port_imports_no_jax():
             "trilinos_tpu_torch/precond/containers.py",
             "trilinos_tpu_torch/precond/multicolor_gs.py",
             "trilinos_tpu_torch/precond/schwarz.py",
-            "trilinos_tpu_torch/precond/hiptmair.py"} <= names
+            "trilinos_tpu_torch/precond/hiptmair.py",
+            "trilinos_tpu_torch/solvers/direct.py",
+            "trilinos_tpu_torch/solvers/pliris.py",
+            "trilinos_tpu_torch/precond/direct_prec.py",
+            "trilinos_tpu_torch/precond/two_level_schwarz.py",
+            "trilinos_tpu_torch/precond/block_2x2.py",
+            "trilinos_tpu_torch/ops/komplex.py",
+            "trilinos_tpu_torch/ops/filters.py",
+            "trilinos_tpu_torch/parallel/partition.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -344,7 +394,8 @@ def test_default_device_needs_a_card():
         entry()
     for fn in (block_entry, cheb_entry, sstep_entry, fused_cg_entry,
                elasticity_entry, bdia_cg_entry, gmres_entry,
-               bsr_gmres_entry, mm_block_gmres_entry, uncoupled_amg_entry):
+               bsr_gmres_entry, mm_block_gmres_entry, uncoupled_amg_entry,
+               komplex_entry):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
     from trilinos_tpu_torch.galeri import laplace3d

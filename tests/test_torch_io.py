@@ -5,9 +5,12 @@ Every file is written by the test itself (the reference's matrix suite is
 not in the repository). Both packages read the same file and must give the
 same CSR bit for bit (row pointers, columns, values), and the port's
 native reader must give what its Python parser gives (coordinate files:
-general, symmetric, skew-symmetric, pattern, integer, gzip). Complex and
-hermitian files and the array format take the Python parser in both
-packages (a symmetric array file the port reads whole, where the
+general, symmetric, skew-symmetric, pattern, integer, gzip, a header in
+mixed case). The native header compares without regard to case and
+declines a hermitian file to the Python parser, which mirrors it; the JAX
+package's native reader reads both as general, so these two are held to
+the JAX package's Python parser. Complex files and the array format take
+the Python parser in both packages (a symmetric array file the port reads whole, where the
 reference raises). A Harwell-Boeing RUA and RSA file that the test writes
 in the reference's fixed Fortran formats read the same in both packages
 and equal the matrix written to 1e-12 (12-digit E fields). Containers written by one
@@ -63,7 +66,15 @@ COORD_FILES = {
                 ["1 1 4", "3 1 -2", "2 3 7"]),
     "duplicates": ("coordinate real general", "2 2 3",
                    ["1 1 0.5", "1 1 0.25", "2 2 1e-300"]),
+    "Symmetric": ("coordinate real Symmetric", "3 3 4",
+                  ["1 1 2.0", "2 1 -1.0", "2 2 2.0", "3 3 5.0"]),
+    "hermitian": ("coordinate real hermitian", "3 3 4",
+                  ["1 1 2.0", "2 1 -1.0", "2 2 2.0", "3 3 5.0"]),
 }
+# headers the JAX package's native reader reads as general (it compares
+# case-sensitively and does not mirror hermitian): held to its Python
+# parser, and the native path of the port declines hermitian
+JAX_NATIVE_GENERAL = {"Symmetric": "native", "hermitian": "python"}
 
 
 def write_text(path, header, size, entries, comment="generated"):
@@ -95,9 +106,20 @@ def test_round_trip_both_packages(tmp_path, name):
 @pytest.mark.parametrize("kind", sorted(COORD_FILES))
 def test_native_reader_matches_python_and_jax(tmp_path, kind):
     path = write_text(tmp_path / f"{kind}.mtx", *COORD_FILES[kind])
+    before = (tmm.read_sparse.native_calls, tmm.read_sparse.python_calls)
     native = tio.read_sparse(path)
+    served = "python" if JAX_NATIVE_GENERAL.get(kind) == "python" \
+        else "native"
+    assert (tmm.read_sparse.native_calls - before[0],
+            tmm.read_sparse.python_calls - before[1]) == (
+        (1, 0) if served == "native" else (0, 1))
     same_csr(native, python_read(path))
-    same_csr(native, jio.read_sparse(str(path)))
+    if kind in JAX_NATIVE_GENERAL:
+        with open(path) as f:
+            same_csr(native, jio.read_sparse(f))
+        assert native.nnz == 5  # (2, 1) mirrored to (1, 2)
+    else:
+        same_csr(native, jio.read_sparse(str(path)))
     gz = tmp_path / f"{kind}.mtx.gz"
     with gzip.open(gz, "wb") as f:
         f.write(path.read_bytes())

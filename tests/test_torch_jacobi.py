@@ -5,9 +5,10 @@ package's.
 ``BlockJacobi`` built by both packages from one host matrix and one
 parameter set: the same inverse diagonal, and applies on (n,) and (n, k)
 to 1e-13 relative, f64. ``convert.relaxation_from_numpy`` carries the JAX
-state over. ``create`` builds every ported name, raises
-NotImplementedError (naming the ROADMAP item) on a name not ported yet and
-ValueError on an unknown one, as the reference does.
+state over. ``create`` builds every name of the reference's table: the
+names freed by the direct solvers (the two-level Schwarz and Amesos2
+families) create, compute and apply as the JAX package's create does, to
+1e-12; an unknown name raises ValueError, as in the reference.
 """
 import numpy as np
 import pytest
@@ -99,9 +100,10 @@ PORTED = ["JACOBI", "Relaxation", "block_jacobi", "SA-AMG", "AMG", "MueLu"]
 # CHEBYSHEV and GMRESPOLY are ported now (tests/test_torch_poly_cheb.py)
 # the ILU family, the containers, Gauss-Seidel, Schwarz and Hiptmair are
 # ported now (tests/test_torch_ilu.py, tests/test_torch_relaxation_blocks.py);
-# what is left needs the direct solvers
-NOT_PORTED = ["GDSW", "KLU2", "TWO-LEVEL SCHWARZ", "FROSCH", "AMESOS2",
-              "DIRECT", "TACHO", "CHOLMOD", "Klu2"]
+# the names below were freed by the direct solvers
+# (tests/test_torch_direct.py, tests/test_torch_two_level.py)
+FREED = ["GDSW", "KLU2", "TWO-LEVEL SCHWARZ", "FROSCH", "AMESOS2", "DIRECT",
+         "TACHO", "CHOLMOD", "Klu2"]
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -130,10 +132,31 @@ def test_create_block_amg_name():
     assert isinstance(m, tprec.BlockStructuredAmg)
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_create_refuses_unported_names(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tprec.create(name, port_csr(jst.laplace2d(4, 4)), device="cpu")
+@pytest.mark.parametrize("name", FREED)
+def test_create_builds_freed_names(name):
+    """Each freed name through both packages' create() on laplace2d 12²
+    (four box subdomains of 6², f64): the same class, the apply to 1e-12
+    on (n,) and (n, 3); the caller's parameters keep no added solver."""
+    from trilinos_tpu_torch.precond import DirectPrec, TwoLevelSchwarz
+
+    a = jst.laplace2d(12, 12)
+    params = {}
+    if "SCHWARZ" in name.upper() or name in ("GDSW", "FROSCH"):
+        i = np.arange(144)
+        params = {"schwarz: num subdomains": 4,
+                  "schwarz: subdomain ids": (i // 72) * 2 + (i % 12) // 6}
+    jm = jprec.create(name, a, dict(params)).compute()
+    tm = tprec.create(name, port_csr(a), params, device="cpu").compute()
+    assert type(tm) is (DirectPrec if type(jm).__name__ == "DirectPrec"
+                        else TwoLevelSchwarz)
+    assert "solver" not in params
+    rng = np.random.default_rng(3)
+    for shape in ((144,), (144, 3)):
+        x = rng.standard_normal(shape)
+        want = np.asarray(jm(jnp.asarray(x)))
+        got = tm(torch.from_numpy(x)).numpy()
+        assert got.shape == want.shape
+        assert rel(got, want) <= 1e-12, rel(got, want)
 
 
 def test_create_unknown_name():

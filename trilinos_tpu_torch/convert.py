@@ -18,10 +18,12 @@ from .ops.formats import (BdiaMatrix, BsrMatrix, CsrHost, DiaMatrix,
                           EllMatrix, dia_from_host)
 from .ops.stencil_op import StencilOp
 from .precond.amg import structured_block
+from .precond.direct_prec import DirectPrec
 from .precond.ilu import Ilu0
 from .precond.ilut import Ilut
 from .precond.jacobi import Relaxation
 from .precond.schwarz import AdditiveSchwarz
+from .precond.two_level_schwarz import TwoLevelSchwarz
 from .precond.poly import GmresPoly
 from .solvers.gcrodr import RecycleSpace
 from .solvers.rcg import CgRecycleSpace
@@ -126,6 +128,33 @@ def schwarz_from_numpy(a: CsrHost, inv, gather, weight, params=None,
     m.set_state(_to_device(inv, device),
                 _to_device(np.asarray(gather, np.int64), device),
                 _to_device(weight, device))
+    return m
+
+
+def direct_prec_from_numpy(a: CsrHost, inv_dense, params=None,
+                           device=None) -> DirectPrec:
+    """A computed port ``DirectPrec`` on host matrix ``a`` whose state is
+    the JAX one's padded dense inverse ``inv_dense``."""
+    m = DirectPrec(a, params, device=device).initialize()
+    m.set_state(_to_device(inv_dense, device))
+    return m
+
+
+def two_level_schwarz_from_numpy(a: CsrHost, phi, a0_inv, inv, gather,
+                                 weight, params=None,
+                                 device=None) -> TwoLevelSchwarz:
+    """A computed port ``TwoLevelSchwarz`` on host matrix ``a`` whose state
+    is the JAX one's: the padded coarse basis ``phi``, ``a0_inv`` and its
+    first level's ``inv``, ``gather`` and ``weight``."""
+    m = TwoLevelSchwarz(a, params, device=device).initialize()
+    p = m.params
+    level1 = schwarz_from_numpy(a, inv, gather, weight, {
+        "schwarz: num subdomains": p["schwarz: num subdomains"],
+        "schwarz: overlap level": p["schwarz: overlap level"],
+        "schwarz: combine mode": p["schwarz: combine mode"],
+        "schwarz: subdomain ids": p["schwarz: subdomain ids"],
+        "dtype": p["dtype"]}, device)
+    m.set_state(level1, _to_device(phi, device), _to_device(a0_inv, device))
     return m
 
 

@@ -79,17 +79,31 @@ format) as ``dia=``; ``step(b)``, with ``step.manager`` and
 ``step.preconditioner``.
 
 ``mm_block_gmres_entry()``: BASELINE config 3, "MatrixMarket suite (e.g.
-bcsstk, sherman) block-GMRES with ILU(0) + DGKS ortho", on a generated
-nonsymmetric matrix: Galeri ``recirc2d(nx, nx)`` (default diffusion) is
-written to a Matrix Market file with ``write_sparse`` and read back with
-``read_sparse`` (the native reader), stored as ELL, preconditioned by
+bcsstk, sherman) block-GMRES with ILU(0) + DGKS ortho". The matrix is a
+given file, ``matrix_file=`` (Matrix Market, read with ``read_sparse``, or
+Harwell-Boeing, read with ``read_hb``, chosen by the file's first line;
+the file is only read), or else a generated nonsymmetric one: Galeri
+``recirc2d(nx, nx)`` (default diffusion) written to a Matrix Market file
+with ``write_sparse`` and read back with ``read_sparse`` (the native
+reader), the file at ``path`` (default: a temporary directory, removed
+after the read). Either way it is stored as ELL, preconditioned by
 ``Ilu0`` with 20 Jacobi sweeps a factor (its factors DIA), and solved by
 block GMRES with DGKS projection on nrhs = 2 seed-2 normals, float64,
 ``num_blocks=60``, ``max_restarts=20``, rtol 1e-8 (the JAX package's
-BASELINE test). The file goes to ``path`` (default: a temporary
-directory, removed after the read); ``step(b)``, with the matrix read
-back as ``step.matrix``, its ELL form as ``step.operator`` and the
-preconditioner as ``step.preconditioner``.
+BASELINE test); ``step(b)``, with the matrix read as ``step.matrix``, its
+ELL form as ``step.operator`` and the preconditioner as
+``step.preconditioner``.
+
+``komplex_entry()``: a complex solve through its equivalent real form
+(Komplex): the complex shifted Laplacian Galeri ``laplace2d(nx, nx)`` +
+i·``shift``·I is written as a complex Matrix Market file (to ``path``, or
+a temporary directory) and read back with ``read_sparse`` (complex files
+take the Python parser), then ``step(bz)`` runs ``solve_complex`` on it
+with GMRES(30) at rtol 1e-8 right-preconditioned by ``RILUK`` (ILU(0),
+fixed-sweep applies) on the 2n × 2n real form, set-up included, and
+returns ``(z, result)``; ``bz`` is a seed-5 complex normal (host numpy),
+the complex matrix is ``step.matrix`` and the solve's parameter list
+``step.params``.
 
 ``uncoupled_amg_entry()``: CG at rtol 1e-5 preconditioned by the uncoupled
 smoothed-aggregation hierarchy (``SaAmg`` with "aggregation: type"
@@ -107,6 +121,7 @@ zero pad rows.
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import pathlib
 import tempfile
 
@@ -114,10 +129,13 @@ import numpy as np
 import torch
 
 from .device import resolve_device, torch_dtype
-from .galeri import elasticity3d, laplace3d, recirc2d, rigid_body_modes
-from .io import read_sparse, write_sparse
+from .galeri import (elasticity3d, laplace2d, laplace3d, recirc2d,
+                     rigid_body_modes)
+from .io import read_hb, read_sparse, write_sparse
 from .ops.bdia_spmv import bdia_plane_solver_op
-from .ops.formats import choose_format, csr_to_bdia, csr_to_bsr, csr_to_ell
+from .ops.formats import (CsrHost, choose_format, csr_to_bdia, csr_to_bsr,
+                          csr_to_ell)
+from .ops.komplex import solve_complex
 from .ops.matvec import spmv
 from .precond import BlockStructuredAmg, Ilu0, Relaxation, SaAmg
 from .solvers import (LinearProblem, block_gmres, build, cg, cg_fused,
@@ -343,13 +361,29 @@ def build_entry(solver="CG", prec="CHEBYSHEV", dims=(256, 256, 256),
     return step, (_rhs(dia, dev, dia.dtype),)
 
 
-def mm_block_gmres_entry(nx=32, device=None, path=None):
+def _read_matrix_file(path) -> CsrHost:
+    """A Matrix Market file (first line ``%%MatrixMarket``, ``.gz`` too)
+    through ``read_sparse``, any other through ``read_hb``; the file is
+    only read."""
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "rb") as f:
+        is_mm = f.read(14) == b"%%MatrixMarket"
+    return read_sparse(path) if is_mm else read_hb(path)
+
+
+def mm_block_gmres_entry(nx=32, device=None, path=None, matrix_file=None):
     dev = resolve_device(device)
-    with tempfile.TemporaryDirectory() as tmp:
-        mtx = path or pathlib.Path(tmp) / f"recirc2d_{nx}.mtx"
-        write_sparse(mtx, recirc2d(nx, nx),
-                     comment=f"Galeri recirc2d({nx}, {nx})")
-        a = read_sparse(mtx)
+    if matrix_file is not None:
+        if path is not None:
+            raise ValueError("give path= (a file to write) or matrix_file= "
+                             "(a file to read), not both")
+        a = _read_matrix_file(matrix_file)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            mtx = path or pathlib.Path(tmp) / f"recirc2d_{nx}.mtx"
+            write_sparse(mtx, recirc2d(nx, nx),
+                         comment=f"Galeri recirc2d({nx}, {nx})")
+            a = read_sparse(mtx)
     ell = csr_to_ell(a, device=dev)
     ilu = Ilu0(a, {"fact: sweeps": 20}, device=dev).compute()
 
@@ -363,6 +397,48 @@ def mm_block_gmres_entry(nx=32, device=None, path=None):
     host[:a.shape[0]] = np.random.default_rng(2).standard_normal(
         (a.shape[0], 2))
     return step, (torch.from_numpy(host).to(dev),)
+
+
+def _write_complex_mm(path, a) -> None:
+    """A host CSR with complex values as Matrix Market coordinate complex
+    general (row, column, real part, imaginary part)."""
+    rows = a._rows() + 1
+    with open(path, "wt") as f:
+        f.write("%%MatrixMarket matrix coordinate complex general\n")
+        f.write(f"{a.shape[0]} {a.shape[1]} {a.nnz}\n")
+        for r, c, v in zip(rows, a.cols + 1, a.vals):
+            f.write(f"{r} {c} {v.real:.17g} {v.imag:.17g}\n")
+
+
+KOMPLEX_PARAMS = {
+    "Linear Solver Type": "GMRES",
+    "Solver Types": {"GMRES": {"Num Blocks": 30,
+                               "Convergence Tolerance": 1e-8,
+                               "Maximum Iterations": 1000}},
+    "Preconditioner Type": "RILUK"}
+
+
+def komplex_entry(nx=128, shift=2.0, device=None, path=None):
+    dev = resolve_device(device)
+    lap = laplace2d(nx, nx)
+    n = lap.shape[0]
+    idx = np.arange(n)
+    az = CsrHost.from_coo(np.concatenate([lap._rows(), idx]),
+                          np.concatenate([lap.cols, idx]),
+                          np.concatenate([lap.vals.astype(np.complex128),
+                                          np.full(n, 1j * shift)]),
+                          lap.shape)
+    with tempfile.TemporaryDirectory() as tmp:
+        mtx = path or pathlib.Path(tmp) / f"shifted_laplace2d_{nx}.mtx"
+        _write_complex_mm(mtx, az)
+        a = read_sparse(mtx)
+
+    def step(bz):
+        return solve_complex(a, bz, KOMPLEX_PARAMS, device=dev)
+
+    step.matrix, step.params = a, KOMPLEX_PARAMS
+    rng = np.random.default_rng(5)
+    return step, (rng.standard_normal(n) + 1j * rng.standard_normal(n),)
 
 
 def uncoupled_amg_entry(dims=(16, 16, 16), dtype=np.float32, device=None,

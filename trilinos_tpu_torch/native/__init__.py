@@ -1,12 +1,17 @@
 """The port's native (C++) host helpers: the AMG set-up's CSR SpGEMM, the
-Matrix Market reader and the incomplete factorizations.
+Matrix Market reader, the incomplete factorizations and the sparse direct
+factorizations.
 
 Copies of functions of the JAX package's native library
 (``trilinos_tpu/native/src/tt_native.cpp``), nothing else of it:
 ``tt_spgemm.cpp`` holds the two SpGEMM passes
 (``tt_spgemm_count``/``tt_spgemm_fill``); ``tt_factor.cpp`` the Matrix
 Market parser (``tt_read_mm_header``/``tt_read_mm``), ``tt_ilu0``,
-``tt_ilut`` and ``tt_iluk``. Both are compiled into one library with
+``tt_ilut``, ``tt_iluk``, the sparse LU ``tt_splu`` and the sparse
+Cholesky ``tt_spchol`` with their solves on many right-hand sides
+(``tt_splu_solve_many``/``tt_spchol_solve_many``: each column by the
+reference's one-column solve, the columns shared among the host's cores).
+Both are compiled into one library with
 ``g++ -O3 -shared -fPIC`` at first use into ``trilinos_tpu_torch/_build/``
 (git-ignored), keyed by a hash of every source and the flags, so an edit of
 either rebuilds it, and loaded with ``ctypes``. Each build writes a file of
@@ -16,9 +21,9 @@ Without ``g++`` the library is unavailable (:func:`lib` returns None) and
 every wrapper here returns None: its caller takes the numpy/Python path of
 the JAX package. The callers count which path served
 (``spgemm.native_calls``/``numpy_calls``, ``read_sparse``,
-``ilu0_factor``, ``ilut_factor`` and ``iluk_pattern`` each
-``native_calls``/``python_calls``). A compiler that is present but fails
-raises.
+``ilu0_factor``, ``ilut_factor``, ``iluk_pattern``, ``SparseLu`` and ``SparseCholesky``
+each ``native_calls``/``python_calls``). A compiler that is present but
+fails raises.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import numpy as np
 _HERE = Path(__file__).resolve().parent
 _SRC = (_HERE / "tt_spgemm.cpp", _HERE / "tt_factor.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -115,6 +120,24 @@ def lib() -> ctypes.CDLL | None:
         lb.tt_iluk.restype = i64
         lb.tt_iluk.argtypes = [i64, arr(np.int64), arr(np.int32), i64, i64,
                                arr(np.int64), arr(np.int32)]
+        lb.tt_splu.restype = i64
+        lb.tt_splu.argtypes = [
+            i64, arr(np.int64), arr(np.int32), arr(np.float64), i64,
+            arr(np.int64), arr(np.int32), arr(np.float64), arr(np.int64),
+            arr(np.int32), arr(np.float64), arr(np.int64)]
+        lb.tt_splu_solve_many.restype = None
+        lb.tt_splu_solve_many.argtypes = [
+            i64, i64, arr(np.int64), arr(np.int32), arr(np.float64),
+            arr(np.int64), arr(np.int32), arr(np.float64), arr(np.int64),
+            arr(np.float64), arr(np.float64), i64]
+        lb.tt_spchol.restype = i64
+        lb.tt_spchol.argtypes = [i64, arr(np.int64), arr(np.int32),
+                                 arr(np.float64), i64, arr(np.int64),
+                                 arr(np.int32), arr(np.float64)]
+        lb.tt_spchol_solve_many.restype = None
+        lb.tt_spchol_solve_many.argtypes = [
+            i64, i64, arr(np.int64), arr(np.int32), arr(np.float64),
+            arr(np.float64), arr(np.float64), i64]
         _lib = lb
         return _lib
 
@@ -241,3 +264,102 @@ def iluk_native(n: int, row_ptr: np.ndarray, cols: np.ndarray, kfill: int):
         need = lb.tt_iluk(n, row_ptr, cols, kfill, int(need), out_ptr,
                           out_cols)
     return out_ptr, out_cols[:need]
+
+
+# fill-capacity retries of the two-call protocol (the JAX package's limit)
+_RETRIES = 8
+
+
+def splu_native(n, row_ptr, cols, vals):
+    """Sparse LU (Gilbert-Peierls, partial pivoting) of an n×n CSR.
+
+    Returns (l_ptr, l_cols, l_vals, u_ptr, u_cols, u_vals, perm), or None
+    without the library. L and U are column-major: L column j holds
+    original-row multipliers (unit diagonal implied); U column j holds
+    pivot-position rows with the diagonal last; perm[k] is the original row
+    in pivot position k. The output arrays grow until they hold the
+    factors (at most ``_RETRIES`` calls)."""
+    lb = lib()
+    if lb is None:
+        return None
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    cols = np.ascontiguousarray(cols, np.int32)
+    vals = np.ascontiguousarray(vals, np.float64)
+    cap = max(int(row_ptr[-1]) * 8, 16 * n, 1024)
+    for _ in range(_RETRIES):
+        l_ptr, u_ptr = np.zeros(n + 1, np.int64), np.zeros(n + 1, np.int64)
+        l_cols, u_cols = np.zeros(cap, np.int32), np.zeros(cap, np.int32)
+        l_vals, u_vals = np.zeros(cap), np.zeros(cap)
+        perm = np.zeros(n, np.int64)
+        r = lb.tt_splu(n, row_ptr, cols, vals, cap, l_ptr, l_cols, l_vals,
+                       u_ptr, u_cols, u_vals, perm)
+        if r >= 0:
+            return (l_ptr, l_cols[:l_ptr[n]], l_vals[:l_ptr[n]],
+                    u_ptr, u_cols[:u_ptr[n]], u_vals[:u_ptr[n]], perm)
+        cap = max(int(-r) * 2, cap * 2)
+    raise RuntimeError("tt_splu: fill capacity retry limit exceeded")
+
+
+def _many(solve, n, b):
+    """solve(k, rows, out) on b's columns as rows of a (k, n) array; x in
+    b's shape, (n,) or (n, k)."""
+    b = np.asarray(b, np.float64)
+    rows = np.ascontiguousarray(b.reshape(n, -1).T)
+    out = np.empty_like(rows)
+    solve(rows.shape[0], rows, out)
+    return out[0] if b.ndim == 1 else out.T
+
+
+def splu_solve_native(factors, b):
+    """x with A x = b from :func:`splu_native`'s factors, for b of shape
+    (n,) or (n, k), or None without the library."""
+    lb = lib()
+    if lb is None:
+        return None
+    l_ptr, l_cols, l_vals, u_ptr, u_cols, u_vals, perm = factors
+    n = len(perm)
+    return _many(lambda k, rows, out: lb.tt_splu_solve_many(
+        n, k, l_ptr, l_cols, l_vals, u_ptr, u_cols, u_vals, perm, rows, out,
+        os.cpu_count() or 1), n, b)
+
+
+class NotSpdError(ValueError):
+    """tt_spchol found a non-positive reduced diagonal."""
+
+
+def spchol_native(n, row_ptr, cols, vals):
+    """Sparse Cholesky LL^T (up-looking, elimination tree) of an n×n CSR
+    whose lower triangle is read. Returns (l_ptr, l_cols, l_vals), CSC with
+    the diagonal first in each column, or None without the library; raises
+    :class:`NotSpdError` when the matrix is not positive definite."""
+    lb = lib()
+    if lb is None:
+        return None
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    cols = np.ascontiguousarray(cols, np.int32)
+    vals = np.ascontiguousarray(vals, np.float64)
+    cap = max(int(row_ptr[-1]) * 4, 8 * n, 1024)
+    for _ in range(_RETRIES):
+        l_ptr = np.zeros(n + 1, np.int64)
+        l_cols, l_vals = np.zeros(cap, np.int32), np.zeros(cap)
+        r = lb.tt_spchol(n, row_ptr, cols, vals, cap, l_ptr, l_cols, l_vals)
+        if r >= 0:
+            return l_ptr, l_cols[:r], l_vals[:r]
+        if -r >= 10 ** 15:
+            raise NotSpdError(
+                f"tt_spchol: non-positive pivot at column {-r - 10 ** 15} "
+                "(matrix not symmetric positive definite)")
+        cap = max(int(-r) * 2, cap * 2)
+    raise RuntimeError("tt_spchol: fill capacity retry limit exceeded")
+
+
+def spchol_solve_native(factors, b):
+    """x with A x = b from :func:`spchol_native`'s factor, for b of shape
+    (n,) or (n, k), or None without the library."""
+    lb = lib()
+    if lb is None:
+        return None
+    l_ptr, l_cols, l_vals = factors
+    n = len(l_ptr) - 1
+    return _many(lambda k, rows, out: lb.tt_spchol_solve_many(
+        n, k, l_ptr, l_cols, l_vals, rows, out, os.cpu_count() or 1), n, b)

@@ -1,12 +1,21 @@
-// Host set-up of the stored-matrix path: the Matrix Market reader and the
-// incomplete factorizations, copied from the JAX package's native library
-// (trilinos_tpu/native/src/tt_native.cpp) and nothing else of it.
+// Host set-up of the stored-matrix path: the Matrix Market reader, the
+// incomplete factorizations and the sparse direct factorizations, copied
+// from the JAX package's native library (trilinos_tpu/native/src/
+// tt_native.cpp) and nothing else of it.
 //
 //   * tt_read_mm_header / tt_read_mm: Matrix Market coordinate parser
 //     (real, integer and pattern fields; one strtod scan of the entries);
 //   * tt_ilu0: in-place ILU(0) numeric factorization on a sorted CSR;
 //   * tt_ilut: Saad's dual-threshold ILUT(p, tau), row by row;
-//   * tt_iluk: the ILU(k) level-of-fill pattern.
+//   * tt_iluk: the ILU(k) level-of-fill pattern;
+//   * tt_splu / tt_splu_solve: Gilbert-Peierls sparse LU with partial
+//     pivoting and its solve;
+//   * tt_spchol / tt_spchol_solve: up-looking sparse Cholesky LL^T with
+//     the elimination tree, and its solve;
+//   * tt_splu_solve_many / tt_spchol_solve_many: those solves on k
+//     right-hand sides, each by the one-column arithmetic, the columns
+//     shared among threads (the dense inverse of a direct preconditioner
+//     is n solves).
 //
 // Build: g++ -O3 -shared -fPIC, one library with tt_spgemm.cpp
 // (trilinos_tpu_torch/native/__init__.py).
@@ -18,9 +27,29 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <strings.h>
 #include <queue>
 #include <set>
+#include <thread>
 #include <vector>
+
+namespace {
+
+// fn(j) for j in [0, k), the columns split into contiguous ranges among
+// at most `threads` threads
+template <class Fn>
+void for_columns(int64_t k, int64_t threads, Fn fn) {
+  const int64_t t = std::max<int64_t>(1, std::min(threads, k));
+  std::vector<std::thread> pool;
+  for (int64_t w = 1; w < t; ++w)
+    pool.emplace_back([=] {
+      for (int64_t j = k * w / t; j < k * (w + 1) / t; ++j) fn(j);
+    });
+  for (int64_t j = 0; j < k / t; ++j) fn(j);
+  for (auto& th : pool) th.join();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -30,7 +59,11 @@ extern "C" {
 
 // Parses the header; returns 0 on success. symm: 0 general, 1 symmetric,
 // 2 skew. field: 0 real/int, 1 pattern. Leaves *data_pos at the first
-// entry line's file offset.
+// entry line's file offset. The banner's words compare without regard to
+// case, as the Python parser reads them; a file this parser would not
+// read as the Python parser does (an object other than "matrix", the
+// array format, complex entries, hermitian or an unknown symmetry) is
+// declined with a negative code and left to the Python parser.
 int tt_read_mm_header(const char* path, int64_t* m, int64_t* n,
                       int64_t* nnz, int* symm, int* pattern,
                       int64_t* data_pos) {
@@ -45,16 +78,19 @@ int tt_read_mm_header(const char* path, int64_t* m, int64_t* n,
   char obj[64], fmt[64], field[64], sym[64];
   if (std::sscanf(line, "%%%%MatrixMarket %63s %63s %63s %63s", obj, fmt,
                   field, sym) != 4) { std::fclose(f); return -4; }
-  if (std::strcmp(fmt, "coordinate") != 0) { std::fclose(f); return -5; }
+  if (strcasecmp(obj, "matrix") != 0 || strcasecmp(fmt, "coordinate") != 0) {
+    std::fclose(f);
+    return -5;
+  }
   // complex entries carry FOUR value columns — this parser reads three,
-  // so defer complex (and hermitian symmetry) to the Python reader
-  if (std::strcmp(field, "real") != 0 &&
-      std::strcmp(field, "integer") != 0 &&
-      std::strcmp(field, "pattern") != 0) { std::fclose(f); return -8; }
-  *pattern = std::strcmp(field, "pattern") == 0 ? 1 : 0;
-  if (std::strcmp(sym, "symmetric") == 0) *symm = 1;
-  else if (std::strcmp(sym, "skew-symmetric") == 0) *symm = 2;
-  else *symm = 0;
+  // so defer complex to the Python reader
+  if (strcasecmp(field, "real") != 0 && strcasecmp(field, "integer") != 0 &&
+      strcasecmp(field, "pattern") != 0) { std::fclose(f); return -8; }
+  *pattern = strcasecmp(field, "pattern") == 0 ? 1 : 0;
+  if (strcasecmp(sym, "general") == 0) *symm = 0;
+  else if (strcasecmp(sym, "symmetric") == 0) *symm = 1;
+  else if (strcasecmp(sym, "skew-symmetric") == 0) *symm = 2;
+  else { std::fclose(f); return -9; }  // hermitian or unknown: decline
   // skip comments
   long pos;
   for (;;) {
@@ -361,6 +397,316 @@ int64_t tt_iluk(int64_t n, const int64_t* a_ptr, const int32_t* a_cols,
     uptr[i + 1] = (int64_t)ucols.size();
   }
   return total;
+}
+
+
+// ---------------------------------------------------------------------------
+// Sparse LU: Gilbert-Peierls left-looking factorization with partial
+// pivoting (the algorithm behind KLU/SuperLU's column factorization —
+// reference consumer: packages/amesos2/src/Amesos2_KLU2_decl.hpp).
+// Two-call protocol: tt_splu sizes/fills within caller-provided capacity;
+// returns required nnz (caller retries with bigger buffers if needed).
+// Outputs: L (unit diagonal implicit, row-permuted), U (upper), and the
+// row permutation perm (perm[k] = original row in position k).
+// ---------------------------------------------------------------------------
+
+int64_t tt_splu(int64_t n, const int64_t* a_ptr, const int32_t* a_cols,
+                const double* a_vals, int64_t cap,
+                int64_t* l_ptr, int32_t* l_cols, double* l_vals,
+                int64_t* u_ptr, int32_t* u_cols, double* u_vals,
+                int64_t* perm) {
+  // CSC copy of A (Gilbert-Peierls is column-based)
+  std::vector<int64_t> cptr(n + 1, 0);
+  const int64_t nnz = a_ptr[n];
+  for (int64_t j = 0; j < nnz; ++j) cptr[a_cols[j] + 1]++;
+  for (int64_t c = 0; c < n; ++c) cptr[c + 1] += cptr[c];
+  std::vector<int32_t> crow(nnz);
+  std::vector<double> cval(nnz);
+  {
+    std::vector<int64_t> w(cptr.begin(), cptr.end() - 1);
+    for (int64_t i = 0; i < n; ++i)
+      for (int64_t jj = a_ptr[i]; jj < a_ptr[i + 1]; ++jj) {
+        const int64_t pos = w[a_cols[jj]]++;
+        crow[pos] = (int32_t)i;
+        cval[pos] = a_vals[jj];
+      }
+  }
+  // L stored column-wise during factorization (unit diag implicit)
+  std::vector<std::vector<int32_t>> lrow(n);
+  std::vector<std::vector<double>> lval(n);
+  std::vector<int64_t> pinv(n, -1);  // original row -> pivot position
+  std::vector<double> x(n, 0.0);
+  std::vector<int32_t> stack(n), flag(n, -1), pattern;
+  pattern.reserve(256);
+  int64_t lnnz = 0, unnz = 0;
+  u_ptr[0] = 0;
+  for (int64_t col = 0; col < n; ++col) {
+    // symbolic: DFS from A(:,col) rows through L columns of pivoted rows
+    pattern.clear();
+    for (int64_t jj = cptr[col]; jj < cptr[col + 1]; ++jj) {
+      int32_t r = crow[jj];
+      if (flag[r] == col) continue;
+      // iterative DFS
+      int64_t top = 0;
+      stack[top] = r;
+      std::vector<int64_t> pos_in(1, 0);
+      while (top >= 0) {
+        const int32_t node = stack[top];
+        if (flag[node] != col) flag[node] = col;
+        const int64_t pv = pinv[node];
+        bool descended = false;
+        if (pv >= 0) {
+          auto& lr = lrow[pv];
+          for (int64_t q = pos_in[top]; q < (int64_t)lr.size(); ++q) {
+            const int32_t child = lr[q];
+            if (flag[child] != col) {
+              pos_in[top] = q + 1;
+              stack[++top] = child;
+              if ((int64_t)pos_in.size() <= top) pos_in.push_back(0);
+              else pos_in[top] = 0;
+              descended = true;
+              break;
+            }
+          }
+        }
+        if (!descended) {
+          pattern.push_back(node);
+          --top;
+        }
+      }
+    }
+    // numeric: x = A(:,col); sparse triangular updates in topological
+    // (reverse-pattern) order
+    for (int32_t r : pattern) x[r] = 0.0;
+    for (int64_t jj = cptr[col]; jj < cptr[col + 1]; ++jj)
+      x[crow[jj]] = cval[jj];
+    for (int64_t t = (int64_t)pattern.size() - 1; t >= 0; --t) {
+      const int32_t node = pattern[t];
+      const int64_t pv = pinv[node];
+      if (pv < 0) continue;
+      const double xj = x[node];
+      if (xj == 0.0) continue;
+      auto& lr = lrow[pv];
+      auto& lv = lval[pv];
+      for (size_t q = 0; q < lr.size(); ++q) x[lr[q]] -= lv[q] * xj;
+    }
+    // pivot: largest |x| among unpivoted rows in the pattern
+    double pmax = 0.0;
+    int32_t prow = -1;
+    for (int32_t r : pattern)
+      if (pinv[r] < 0 && std::abs(x[r]) > pmax) {
+        pmax = std::abs(x[r]);
+        prow = r;
+      }
+    if (prow < 0) {  // structurally singular column: pick any free row
+      for (int32_t r = 0; r < n; ++r)
+        if (pinv[r] < 0) { prow = r; break; }
+      x[prow] = (x[prow] == 0.0) ? 1e-300 : x[prow];
+    }
+    const double piv = x[prow] != 0.0 ? x[prow] : 1e-300;
+    pinv[prow] = col;
+    perm[col] = prow;
+    // U column = pivoted-row entries (pattern rows already pivoted)
+    for (int32_t r : pattern) {
+      if (pinv[r] >= 0 && pinv[r] < col && x[r] != 0.0) {
+        if (unnz >= cap) return -(int64_t)(unnz + lnnz + n);
+        u_cols[unnz] = (int32_t)pinv[r];
+        u_vals[unnz] = x[r];
+        ++unnz;
+      }
+    }
+    if (unnz >= cap) return -(int64_t)(unnz + lnnz + n);
+    u_cols[unnz] = (int32_t)col;  // diagonal of U
+    u_vals[unnz] = piv;
+    ++unnz;
+    u_ptr[col + 1] = unnz;
+    // L column (unit diagonal implicit): unpivoted pattern rows
+    auto& lr = lrow[col];
+    auto& lv = lval[col];
+    for (int32_t r : pattern) {
+      if (pinv[r] < 0 && x[r] != 0.0) {
+        lr.push_back(r);
+        lv.push_back(x[r] / piv);
+      }
+    }
+    lnnz += (int64_t)lr.size();
+    for (int32_t r : pattern) x[r] = 0.0;
+  }
+  if (lnnz > cap) return -(lnnz + unnz);
+  // flatten L columns to CSC-ish (l_ptr/l_cols hold column-major: for
+  // column j, the ORIGINAL row ids with their multipliers)
+  l_ptr[0] = 0;
+  int64_t at = 0;
+  for (int64_t j = 0; j < n; ++j) {
+    for (size_t q = 0; q < lrow[j].size(); ++q) {
+      l_cols[at] = lrow[j][q];
+      l_vals[at] = lval[j][q];
+      ++at;
+    }
+    l_ptr[j + 1] = at;
+  }
+  return lnnz + unnz;
+}
+
+// Forward/backward solve with the tt_splu factors: solves A x = b.
+void tt_splu_solve(int64_t n, const int64_t* l_ptr, const int32_t* l_cols,
+                   const double* l_vals, const int64_t* u_ptr,
+                   const int32_t* u_cols, const double* u_vals,
+                   const int64_t* perm, const double* b, double* out) {
+  // y[col] = (P b) with L (unit lower, column-major over original rows)
+  std::vector<double> y(n);
+  std::vector<double> bw(b, b + n);
+  for (int64_t col = 0; col < n; ++col) {
+    const double yc = bw[perm[col]];
+    y[col] = yc;
+    for (int64_t q = l_ptr[col]; q < l_ptr[col + 1]; ++q)
+      bw[l_cols[q]] -= l_vals[q] * yc;
+  }
+  // U x = y  (U stored column-wise: u column col holds rows < col and
+  // the diagonal at the end)
+  std::vector<double>& xv = y;
+  for (int64_t col = n - 1; col >= 0; --col) {
+    const int64_t lo = u_ptr[col], hi = u_ptr[col + 1];
+    const double piv = u_vals[hi - 1];
+    const double xc = xv[col] / piv;
+    xv[col] = xc;
+    for (int64_t q = lo; q < hi - 1; ++q) xv[u_cols[q]] -= u_vals[q] * xc;
+  }
+  for (int64_t i = 0; i < n; ++i) out[i] = xv[i];
+}
+
+// ---------------------------------------------------------------------------
+// Sparse Cholesky (LL^T): up-looking factorization with elimination-tree
+// symbolic analysis — the algorithm class behind CHOLMOD / ShyLU-Tacho
+// (reference consumer: Amesos2's Tacho/Cholmod adapters,
+// packages/amesos2/src/Amesos2_Tacho_decl.hpp). A must be symmetric
+// positive definite; the LOWER triangle of the CSR input is consumed.
+//
+// Output L is COLUMN-major (CSC) with the diagonal entry FIRST in each
+// column, rows ascending after it. Two-call protocol like tt_splu:
+// returns total nnz(L), or the negative required capacity when cap is
+// too small, or -(10^15 + k) when the reduced diagonal at column k is
+// not positive (matrix not SPD).
+// ---------------------------------------------------------------------------
+
+int64_t tt_spchol(int64_t n, const int64_t* a_ptr, const int32_t* a_cols,
+                  const double* a_vals, int64_t cap,
+                  int64_t* l_ptr, int32_t* l_cols, double* l_vals) {
+  // phase 1: elimination tree (Liu's algorithm with path compression)
+  std::vector<int32_t> parent(n, -1), ancestor(n, -1);
+  for (int64_t k = 0; k < n; ++k)
+    for (int64_t q = a_ptr[k]; q < a_ptr[k + 1]; ++q) {
+      int32_t i = a_cols[q];
+      if (i >= (int32_t)k) continue;
+      while (i != -1 && i < (int32_t)k) {
+        const int32_t next = ancestor[i];
+        ancestor[i] = (int32_t)k;
+        if (next == -1) { parent[i] = (int32_t)k; break; }
+        i = next;
+      }
+    }
+  // phase 2: up-looking numeric factorization. L columns grow by one
+  // row per later step, so build them in dynamic per-column buffers.
+  std::vector<std::vector<int32_t>> lrow(n);
+  std::vector<std::vector<double>> lval(n);
+  std::vector<double> diag(n, 0.0), x(n, 0.0);
+  // separate path buffer: the global pattern fills stack from the top
+  // while each etree walk builds from the bottom — one shared array can
+  // collide on long chains (CSparse sizes this workspace 2n)
+  std::vector<int32_t> flag(n, -1), stack(n), path(n);
+  for (int64_t k = 0; k < n; ++k) {
+    // ereach: pattern of L(k, 0..k-1) = union of etree paths from the
+    // below-diagonal entries of A(:,k) up toward k, topological order
+    int64_t top = n;
+    flag[k] = (int32_t)k;
+    double akk = 0.0;
+    for (int64_t q = a_ptr[k]; q < a_ptr[k + 1]; ++q) {
+      const int32_t j = a_cols[q];
+      if (j > (int32_t)k) continue;
+      if (j == (int32_t)k) { akk = a_vals[q]; continue; }
+      x[j] = a_vals[q];
+      int64_t len = 0;
+      for (int32_t i = j; flag[i] != (int32_t)k; i = parent[i]) {
+        path[len++] = i;
+        flag[i] = (int32_t)k;
+      }
+      while (len > 0) stack[--top] = path[--len];
+    }
+    // sparse triangular solve over the pattern (children before parents)
+    for (int64_t p = top; p < n; ++p) {
+      const int32_t j = stack[p];
+      const double lkj = x[j] / diag[j];
+      x[j] = 0.0;
+      const std::vector<int32_t>& rj = lrow[j];
+      const std::vector<double>& vj = lval[j];
+      for (size_t q = 0; q < rj.size(); ++q) x[rj[q]] -= vj[q] * lkj;
+      akk -= lkj * lkj;
+      lrow[j].push_back((int32_t)k);
+      lval[j].push_back(lkj);
+    }
+    if (!(akk > 0.0)) return -(1000000000000000LL + k);
+    diag[k] = std::sqrt(akk);
+  }
+  // emit CSC with the diagonal first per column
+  int64_t total = n;
+  for (int64_t j = 0; j < n; ++j) total += (int64_t)lrow[j].size();
+  if (total > cap) return -total;
+  int64_t at = 0;
+  l_ptr[0] = 0;
+  for (int64_t j = 0; j < n; ++j) {
+    l_cols[at] = (int32_t)j;
+    l_vals[at] = diag[j];
+    ++at;
+    for (size_t q = 0; q < lrow[j].size(); ++q) {
+      l_cols[at] = lrow[j][q];
+      l_vals[at] = lval[j][q];
+      ++at;
+    }
+    l_ptr[j + 1] = at;
+  }
+  return total;
+}
+
+// Solves A x = b with the tt_spchol factor: L y = b, then L^T x = y.
+void tt_spchol_solve(int64_t n, const int64_t* l_ptr,
+                     const int32_t* l_cols, const double* l_vals,
+                     const double* b, double* out) {
+  std::vector<double> y(b, b + n);
+  for (int64_t j = 0; j < n; ++j) {
+    const double yj = y[j] / l_vals[l_ptr[j]];
+    y[j] = yj;
+    for (int64_t q = l_ptr[j] + 1; q < l_ptr[j + 1]; ++q)
+      y[l_cols[q]] -= l_vals[q] * yj;
+  }
+  for (int64_t j = n - 1; j >= 0; --j) {
+    double s = y[j];
+    for (int64_t q = l_ptr[j] + 1; q < l_ptr[j + 1]; ++q)
+      s -= l_vals[q] * y[l_cols[q]];
+    y[j] = s / l_vals[l_ptr[j]];
+  }
+  for (int64_t i = 0; i < n; ++i) out[i] = y[i];
+}
+
+
+// A X = B for k right-hand sides, B and X stored k × n (one right-hand side
+// a row), each column by tt_splu_solve / tt_spchol_solve.
+void tt_splu_solve_many(int64_t n, int64_t k, const int64_t* l_ptr,
+                        const int32_t* l_cols, const double* l_vals,
+                        const int64_t* u_ptr, const int32_t* u_cols,
+                        const double* u_vals, const int64_t* perm,
+                        const double* b, double* out, int64_t threads) {
+  for_columns(k, threads, [=](int64_t j) {
+    tt_splu_solve(n, l_ptr, l_cols, l_vals, u_ptr, u_cols, u_vals, perm,
+                  b + j * n, out + j * n);
+  });
+}
+
+void tt_spchol_solve_many(int64_t n, int64_t k, const int64_t* l_ptr,
+                          const int32_t* l_cols, const double* l_vals,
+                          const double* b, double* out, int64_t threads) {
+  for_columns(k, threads, [=](int64_t j) {
+    tt_spchol_solve(n, l_ptr, l_cols, l_vals, b + j * n, out + j * n);
+  });
 }
 
 }  // extern "C"

@@ -15,6 +15,15 @@ def axpby(alpha, x: torch.Tensor, beta, y: torch.Tensor) -> torch.Tensor:
     return alpha * x + beta * y
 
 
+def update(alpha, x, beta, y, gamma, z):
+    """alpha*x + beta*y + gamma*z (Tpetra::MultiVector::update, 3-term)."""
+    return alpha * x + beta * y + gamma * z
+
+
+def scale(alpha, x: torch.Tensor) -> torch.Tensor:
+    return alpha * x
+
+
 def local_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Columnwise dot of two (n, k) multivectors → (k,); 0-d for (n,)."""
     if x.ndim == 1:
@@ -66,3 +75,30 @@ def mv_times_mat_add_mv(alpha, a: torch.Tensor, b_small: torch.Tensor,
         else:
             out = torch.addmm(out, blk, part, alpha=alpha)
     return out
+
+
+def set_block(src: torch.Tensor, dst: torch.Tensor,
+              cols: tuple[int, ...]) -> torch.Tensor:
+    """dst with src's columns written at the given column positions (Belos
+    SetBlock), as a new tensor."""
+    out = dst.clone()
+    out[:, list(cols)] = src.to(dst.dtype)
+    return out
+
+
+def mv_random(n: int, k: int, dtype=torch.float32, n_valid: int | None = None,
+              generator: torch.Generator | None = None,
+              device=None) -> torch.Tensor:
+    """Belos MvRandom: an (n, k) multivector of standard normals drawn from
+    ``generator`` on ``device`` (``None``: the CUDA card), rows from
+    ``n_valid`` on zero. The reference draws from ``jax.random``, whose
+    stream torch cannot match: the law and the zero pad rows are the
+    same, the values are not."""
+    from ..device import resolve_device, torch_dtype
+
+    dev = resolve_device(device)
+    x = torch.randn((n, k), generator=generator, device=dev,
+                    dtype=torch_dtype(dtype))
+    if n_valid is not None and n_valid < n:
+        x[n_valid:] = 0
+    return x

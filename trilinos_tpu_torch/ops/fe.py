@@ -5,7 +5,7 @@ of Tpetra's FE assembly with an Export-sum at endFill): element matrices
 (ne, k, k) with connectivity (ne, k) expand to COO triples, and
 ``CsrHost.from_coo``'s duplicate sum is the Export-sum. The device-side
 matrix-free ``fe_apply_local`` is not ported yet (ROADMAP.md queue 1
-item 8).
+item 11).
 """
 from __future__ import annotations
 

@@ -70,6 +70,11 @@ def ptap(a: CsrHost, p: CsrHost) -> CsrHost:
     return spgemm(spgemm(p.transpose(), a), p)
 
 
+def rap(r: CsrHost, a: CsrHost, p: CsrHost) -> CsrHost:
+    """General triple product R A P."""
+    return spgemm(spgemm(r, a), p)
+
+
 def diag_matrix(d: np.ndarray) -> CsrHost:
     n = len(d)
     idx = np.arange(n, dtype=np.int64)

@@ -5,23 +5,13 @@ Counterpart of ``Preconditioner`` in ``trilinos_tpu/precond/base.py``
 ``compute()`` the numeric setup that produces device tensors, and
 ``apply(x)`` is usable directly as the ``prec=`` argument of a solver.
 ``create`` is the string factory (Ifpack2::Factory's dispatch) with the
-reference's full name table; a name whose class needs the direct solvers,
-not ported yet, raises ``NotImplementedError`` naming the ROADMAP item
-that holds it.
+reference's full name table.
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils.params import ParameterList, make_params
-
-# names of the reference's table whose classes are not ported yet (each
-# needs solvers/direct.py), with the ROADMAP queue 1 item that holds each
-_LATER = {
-    "TWO-LEVEL SCHWARZ": 7, "FROSCH": 7, "GDSW": 7, "AMESOS2": 7,
-    "DIRECT": 7, "KLU2": 7, "TACHO": 7, "CHOLMOD": 7,
-}
-
 
 class Preconditioner:
     """Base lifecycle: initialize → compute → apply."""
@@ -72,6 +62,7 @@ def create(name: str, a, params: ParameterList | dict | None = None,
     from .block_amg import BlockStructuredAmg
     from .chebyshev import Chebyshev
     from .containers import BlockRelaxation
+    from .direct_prec import DirectPrec
     from .hiptmair import Hiptmair
     from .ilu import Ilu0
     from .ilut import Ilut
@@ -79,6 +70,7 @@ def create(name: str, a, params: ParameterList | dict | None = None,
     from .multicolor_gs import MulticolorGaussSeidel
     from .poly import GmresPoly
     from .schwarz import AdditiveSchwarz
+    from .two_level_schwarz import TwoLevelSchwarz
 
     key = name.strip().upper()
     table = {
@@ -101,17 +93,27 @@ def create(name: str, a, params: ParameterList | dict | None = None,
         "GAUSS-SEIDEL": MulticolorGaussSeidel,
         "SCHWARZ": AdditiveSchwarz,
         "ADDITIVE SCHWARZ": AdditiveSchwarz,
+        "TWO-LEVEL SCHWARZ": TwoLevelSchwarz,
+        "FROSCH": TwoLevelSchwarz,
+        "GDSW": TwoLevelSchwarz,
         "HIPTMAIR": Hiptmair,
+        "AMESOS2": DirectPrec,
+        "DIRECT": DirectPrec,
+        "KLU2": DirectPrec,
+        "TACHO": DirectPrec,
+        "CHOLMOD": DirectPrec,
         "SA-AMG": SaAmg,
         "BLOCK SA-AMG": BlockStructuredAmg,
         "MUELU": SaAmg,
         "AMG": SaAmg,
     }
-    if key in _LATER:
-        raise NotImplementedError(
-            f"preconditioner {name!r} is not ported yet (ROADMAP.md queue 1 "
-            f"item {_LATER[key]})")
     if key not in table:
         raise ValueError(f"unknown preconditioner {name!r}; "
-                         f"valid: {sorted([*table, *_LATER])}")
+                         f"valid: {sorted(table)}")
+    if key in ("TACHO", "CHOLMOD"):
+        # a copy: adding the backend default must not change a caller's
+        # ParameterList (it may be reused for another create())
+        params = make_params(params).copy()
+        if "solver" not in params:
+            params["solver"] = key
     return table[key](a, params, **kw)

@@ -62,6 +62,7 @@ class AdditiveSchwarz(Preconditioner):
         else:
             chunk = -(-n // nd)
             owners = np.minimum(np.arange(n) // chunk, nd - 1)
+        self.owners = owners  # the non-overlapping partition, row → part
         for d in range(nd):
             sel = np.where(owners == d)[0]
             cur = set(sel.tolist())

@@ -54,6 +54,13 @@ class ParameterList:
     def __contains__(self, key: str) -> bool:
         return key in self._data
 
+    def copy(self) -> "ParameterList":
+        """Shallow copy, for callers that add defaults without changing a
+        list they were given."""
+        out = ParameterList(name=self.name)
+        out._data = dict(self._data)
+        return out
+
     def __repr__(self) -> str:
         return f"ParameterList({self.name!r}, {self._data!r})"
 
