@@ -56,6 +56,17 @@ names through ``build()`` (a dense inverse on the card), two-level Schwarz
 CG on laplace2d 256² beside one-level, a complex solve through its real
 form (``komplex_entry``), ``dense_solve`` and Teko's blocked GMRES.
 
+Then the eigensolvers, f64, through ``eigen_entry`` and the factory, each
+gated on Laplace3D's closed-form spectrum and held to its plain run: on
+one 256³ Jacobi hierarchy AMG-LOBPCG and AMG-Block Davidson (the four
+smallest pairs), block Krylov-Schur at a fixed 20 restarts (its basis
+stays on the card; the largest copy to the host is recorded) and
+converged at 14³, TraceMin, RTR, LANCZOS and POWER at 64³, Generalized
+Davidson on recirc2d 128² at a fixed 40 iterations, LOBPCG on the Q1 mass
+pencil at 256³ and AMG-Block Davidson on it at 64³, and ``eigs_near`` at
+64³, each beside the JAX package's CPU count
+(``scripts/eigen_cpu_counts.py``).
+
 Every hierarchy set-up must be served by the native SpGEMM, and every
 factorization by the native library. Each path
 is driven with the launch counts set to 0 just before it and read just
@@ -237,6 +248,80 @@ KOMPLEX_TRUE_MAX = 1e-7
 DENSE_N = 4096  # dense_solve (Pliris on one card), f64
 DENSE_TRUE_MAX = 1e-10
 TEKO_CPU_ITERS = 11  # blocked GMRES(40) + block Gauss-Seidel, rtol 1e-10
+# the Anasazi eigensolvers through eigen_entry / the factory, f64: nev
+# pairs to the factory's default tolerance (an absolute residual norm)
+EIG_NEV = 4
+EIG_TOL = 1e-8
+EIG_CLOSED_RTOL = 1e-8  # each eigenvalue against the closed form
+EIG_PLAIN_RTOL = 1e-10  # kernel and plain runs' eigenvalues
+EIG_SUBSPACE_TOL = 1e-6  # sin of the largest angle between their blocks
+# Block Krylov-Schur LM at 256³ (block size 2, 20 blocks of columns) at a
+# fixed restart budget: rtol 0, 20 restarts, 20 + 20·12 = 260 steps
+BKS_RESTARTS = 20
+BKS_STEPS = 260
+# the leading Ritz value must lie in [λmax − BKS_LEAD_WINDOW, λmax]: 260
+# steps resolve the top of a fine grid's spectrum only to about 1e-3 (the
+# port's CPU runs: 3.4e-4 below λmax at 64³, 1.23e-3 at 128³)
+BKS_LEAD_WINDOW = 1e-2
+# the largest Laplace3D grid whose BKS LM (the same parameters at rtol
+# 1e-8) the JAX package converges within its 20 restarts on the CPU, and
+# its total steps there (scripts/eigen_cpu_counts.py)
+BKS_CONV_DIMS = (14, 14, 14)
+BKS_CONV_CPU_STEPS = 224
+# TraceMin, RTR, LANCZOS and POWER through eigen_entry, Block Davidson on
+# the Q1 mass pencil and eigs_near on this grid; Generalized Davidson on
+# recirc2d CONFIG3_NX² (LM, a fixed EIG_GD_ITERS iterations: it does not
+# converge there within its default 200 in the JAX package either)
+EIG_SMALL_DIMS = (64, 64, 64)
+EIG_SMALL_CASES = [("TraceMin", {}), ("RTR", {}),
+                   ("LANCZOS", {"Which": "LA", "Num Blocks": 200}),
+                   ("POWER", {"Maximum Iterations": 200})]
+EIG_GD_ITERS = 40
+EIG_LANCZOS_RTOL = 1e-6  # LANCZOS's leading Ritz value against λmax
+# the JAX package's CPU f64 counts on the same grids and starts
+# (scripts/eigen_cpu_counts.py): iterations, Ritz values where fixed-count
+EIG_CPU = {"TraceMin": 65, "RTR": 24, "LANCZOS": 200, "POWER": 200,
+           "Generalized Davidson": EIG_GD_ITERS, "Block Davidson mass": 20,
+           "eigs_near": 28}
+EIG_CPU_VALUES = {"LANCZOS": 11.992993347212352,  # the leading Ritz value
+                  "POWER": 11.943743546501134,
+                  "Generalized Davidson": 228.61304284406185}  # max |θ|
+
+
+def mass27_stencil():
+    """The tensor Q1 mass stencil M₁⊗M₁⊗M₁, M₁ = tridiag(1, 4, 1)/6: 27
+    constant terms (a StencilOp's (offset, coefficient) list)."""
+    w = {-1: 1 / 6, 0: 4 / 6, 1: 1 / 6}
+    return [((dx, dy, dz), w[dx] * w[dy] * w[dz]) for dz in (-1, 0, 1)
+            for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+
+
+def laplace_spectrum(dims, mass=False):
+    """Eigenvalues of Galeri Laplace3D on ``dims`` whose indices are each
+    among the six lowest or six highest, closed form: Σₐ 2 − 2cos(iₐπ/(nₐ+1)),
+    or with ``mass`` of the pencil K x = λ M x, M the tensor Q1 mass
+    (Σₐ k₁(iₐ) / Πₐ m₁(iₐ), m₁(i) = (4 + 2cos(iπ/(n+1)))/6): the sine
+    eigenvectors are shared. Sorted, with multiplicity."""
+    idx = [np.unique(np.r_[1:min(n, 6) + 1, max(n - 5, 1):n + 1])
+           for n in dims]
+    vals = []
+    for i in idx[0]:
+        for j in idx[1]:
+            for k in idx[2]:
+                c = [np.cos(t * np.pi / (n + 1))
+                     for t, n in zip((i, j, k), dims)]
+                lam = sum(2 - 2 * ci for ci in c)
+                if mass:
+                    lam /= np.prod([(4 + 2 * ci) / 6 for ci in c])
+                vals.append(lam)
+    return np.sort(vals)
+
+
+def closed_form(dims, count, largest=False, mass=False):
+    """The ``count`` smallest (or largest) eigenvalues, with multiplicity,
+    of Laplace3D on ``dims`` (or of its Q1 mass pencil)."""
+    lam = laplace_spectrum(dims, mass)
+    return lam[::-1][:count] if largest else lam[:count]
 
 
 def teko_system():
@@ -251,6 +336,9 @@ def teko_system():
     dense = np.block([[a00, a01], [a10, a11]])
     return (a00, a01, a10, a11), dense, rng.standard_normal(n0 + n1)
 BATCH, SAMPLES = 10, 25
+# a call slower than SLOW_CALL_MS (the plain versions and library calls at
+# the f64 shapes: 13–72 ms) is timed over SLOW_SAMPLES batches instead
+SLOW_CALL_MS, SLOW_SAMPLES = 2.0, 5
 
 
 def log(*parts):
@@ -275,34 +363,49 @@ def check(name, got, want, tol):
     return err
 
 
+def batch_ms(run):
+    """CUDA-event milliseconds a call of ``run()``, which makes BATCH
+    calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / BATCH
+
+
+def median_ms(run):
+    """Median of ``batch_ms(run)`` over SAMPLES batches after one batch
+    that only picks the count: SLOW_SAMPLES when it read over
+    SLOW_CALL_MS a call."""
+    n = SLOW_SAMPLES if batch_ms(run) > SLOW_CALL_MS else SAMPLES
+    return statistics.median(batch_ms(run) for _ in range(n))
+
+
 def time_ms(fn):
-    """Per-call median over SAMPLES CUDA-event pairs, each around BATCH
-    back-to-back calls, after three warm-up calls: the host path. The
-    events bracket the host's enqueue of every call as well as the
-    device's work, so a call whose host side (Python, allocation, the
-    ctypes launch) outlasts its kernel reads the host's time, not the
+    """Per-call median over CUDA-event pairs, each around BATCH
+    back-to-back calls, after three warm-up calls (``median_ms``): the
+    host path. The events bracket the host's enqueue of every call as well
+    as the device's work, so a call whose host side (Python, allocation,
+    the ctypes launch) outlasts its kernel reads the host's time, not the
     card's."""
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(SAMPLES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+
+    def run():
         for _ in range(BATCH):
             fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / BATCH)
-    return statistics.median(times)
+
+    return median_ms(run)
 
 
 def graph_ms(fn):
     """Device time per call: BATCH calls captured in one CUDA graph (after
-    three warm-up calls on a side stream), the per-call median over
-    SAMPLES timed replays. A replay enqueues the captured launches without
-    the host's work, so this reads the card, down to the gaps between
-    graph nodes (an empty kernel's replay time, ``empty_launch``)."""
+    three warm-up calls on a side stream), the per-call median over timed
+    replays (``median_ms``). A replay enqueues the captured launches
+    without the host's work, so this reads the card, down to the gaps
+    between graph nodes (an empty kernel's replay time, ``empty_launch``)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -313,18 +416,9 @@ def graph_ms(fn):
     with torch.cuda.graph(graph):
         for _ in range(BATCH):
             fn()
-    graph.replay()
-    times = []
-    for _ in range(SAMPLES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / BATCH)
+    ms = median_ms(graph.replay)
     del graph
-    return statistics.median(times)
+    return ms
 
 
 def randn(shape, dtype, seed):
@@ -332,10 +426,10 @@ def randn(shape, dtype, seed):
     return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
 
 
-def stencil_conv(op, k=1):
+def stencil_conv(op, k=1, dtype=torch.float32):
     """The 3×3×3 convolution that computes the same stencil apply, over a
     batch of k single-channel grids (input (k, 1, nz, ny, nx))."""
-    w = torch.zeros((1, 1, 3, 3, 3), device="cuda")
+    w = torch.zeros((1, 1, 3, 3, 3), device="cuda", dtype=dtype)
     for (dx, dy, dz), c in zip(op.offsets, op.coeffs):
         w[0, 0, dz + 1, dy + 1, dx + 1] = c
     nx, ny, nz = op.dims
@@ -501,7 +595,9 @@ def main():
                                           komplex_entry,
                                           mm_block_gmres_entry,
                                           pipelined_cg_entry, sstep_entry,
-                                          uncoupled_amg_entry)
+                                          uncoupled_amg_entry, eigen_entry)
+    from trilinos_tpu_torch.eigen import (EigenProblem, create_eigensolver,
+                                          eigs_near)
     from trilinos_tpu_torch.galeri import (elasticity2d, elasticity3d,
                                            laplace2d, laplace3d, recirc2d,
                                            rigid_body_modes)
@@ -2171,6 +2267,341 @@ def main():
         fail(f"Teko: converged {bool(tres.converged)}, {int(tres.iters)} "
              f"iterations, true residual {t_true:.3e}")
 
+    # -- 7w. the Anasazi eigensolvers: one f64 Jacobi hierarchy of the 256³
+    # stencil serves the preconditioned phases (e1 LOBPCG, e2 Block
+    # Davidson, e5 LOBPCG on the Q1 mass pencil); each phase is driven
+    # through eigen_entry or the factory with the counts at 0 just before,
+    # then again through the plain versions
+    t_eig = time.perf_counter()
+    fine64 = laplace3d(*DIMS, dtype=np.float64, fmt="stencil")
+    amg64, eig_setup_s = setup(f"{GRID} f64 hierarchy (eigensolvers)",
+                               lambda: SaAmg(fine64, {"dtype": np.float64},
+                                             device="cuda").compute())
+    levels64 = [lv["a"] for lv in amg64.state()["levels"][1:]]
+    mass64 = StencilOp.create(DIMS, mass27_stencil(), dtype="float64")
+    # the new kernel shapes against their plain versions: the stencil SpMM
+    # at k = 4 and k = 2 in f64 (LOBPCG, Block Davidson and the V-cycle's
+    # fine level; Block Krylov-Schur) and on the 27-point mass, the DIA
+    # SpMM at k = 4 in f64 on every coarse level, all bitwise;
+    # chol_inv_small at k = 4 and at Block Davidson's widest whitening
+    # (k = 24), f64
+    n64 = fine64.n_rows_pad
+    xe4 = randn((n64, EIG_NEV), torch.float64, seed=90)
+    xe2 = randn((n64, 2), torch.float64, seed=91)
+    eig_err = {
+        "spmm4": check(f"stencil SpMM {GRID} k=4 f64", stencil_spmm(
+            fine64, xe4), stencil_spmv_plain(fine64, xe4), 0.0),
+        "spmm2": check(f"stencil SpMM {GRID} k=2 f64", stencil_spmm(
+            fine64, xe2), stencil_spmv_plain(fine64, xe2), 0.0),
+        "mass": check(f"stencil SpMM {GRID} 27-point Q1 mass k=4 f64",
+                      stencil_spmm(mass64, xe4),
+                      stencil_spmv_plain(mass64, xe4), 0.0),
+        "dia4": 0.0}
+    for i, a in enumerate(levels64, start=1):
+        xl = randn((a.n_rows_pad, EIG_NEV), torch.float64, seed=92 + i)
+        eig_err["dia4"] = max(eig_err["dia4"], check(
+            f"dia SpMM f64 level-{i} {a.n_rows_pad} rows x "
+            f"{len(a.offsets)} diags k=4", dia_spmm(a, xl),
+            dia_spmv_plain(a, xl), 0.0))
+        del xl
+    g_eig = {}
+    for k in (EIG_NEV, 24):
+        pk = randn((4096, k), torch.float64, seed=95 + k)
+        g_eig[k] = with_floor(pk.T @ pk)
+        eig_err[f"chol{k}"] = check(
+            f"chol_inv_small k={k} f64 (eigensolvers)",
+            chol_inv_small(g_eig[k])[1], chol_inv_small_plain(g_eig[k])[1],
+            CHOL_TOL[torch.float64]["vs_plain"])
+
+    def eig_iters(res):
+        """Iterations of any kind's result (None for LANCZOS's fixed
+        length and eigs_near)."""
+        if isinstance(res, tuple):
+            return int(res[2]) if len(res) == 3 else None
+        return int(res.iters)
+
+    def eig_vals(res):
+        """Eigenvalues of any kind's result as a host array."""
+        lam = res[0] if isinstance(res, tuple) else res.eigenvalues
+        if isinstance(lam, torch.Tensor):
+            lam = lam.detach().cpu().numpy()
+        return np.atleast_1d(np.asarray(lam))
+
+    def eig_vecs(res):
+        v = res[1] if isinstance(res, tuple) else res.eigenvectors
+        return v if v.ndim == 2 else v[:, None]
+
+    def subspace_sin(x, y):
+        """sin of the largest principal angle between span(x) and span(y),
+        ‖P_x − P_y‖₂ = ‖(I − Q_x Q_xᴴ) Q_y‖₂, on the device (from the
+        small Gram of the remainder, accurate to rounding)."""
+        dt = torch.complex128 if (x.is_complex() or y.is_complex()) \
+            else torch.float64
+        qx, qy = torch.linalg.qr(x.to(dt))[0], torch.linalg.qr(y.to(dt))[0]
+        r = qy - qx @ (qx.conj().T @ qy)
+        return float(torch.sqrt(torch.linalg.eigvalsh(r.conj().T @ r).max()
+                                .clamp(min=0)))
+
+    eig_runs = {}
+
+    def eig_run(key, label, step_, args, need=()):
+        """step_(*args) through the kernels (counts at 0 just before, peak
+        device memory), through the plain versions, and warm; fails unless
+        every kernel in ``need`` launched or if the plain run's eigenvalues
+        differ by more than EIG_PLAIN_RTOL. Returns the run's record."""
+        torch.cuda.reset_peak_memory_stats()
+        res, ms, launch = drive(step_, args)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ref, pms = plain_run(step_, *args)
+        run = dict(step=step_, args=args, res=res, first=ms, plain=pms,
+                   launches=launch, peak=peak, iters=eig_iters(res),
+                   ref_iters=eig_iters(ref), vals=eig_vals(res),
+                   ref_vals=eig_vals(ref),
+                   sin=subspace_sin(eig_vecs(res), eig_vecs(ref)),
+                   warm=warm(step_, *args))
+        vrel = float(np.max(np.abs(run["vals"] - run["ref_vals"])
+                            / np.abs(run["ref_vals"])))
+        log(f"{label}: iterations {run['iters']} (plain {run['ref_iters']}) "
+            f"eigenvalues {run['vals']!r}; against the plain run "
+            f"max|Δλ|/|λ| {vrel:.3e}, subspace sin {run['sin']:.3e}; first "
+            f"solve {ms:.1f} ms, warm {run['warm']:.1f} ms, plain "
+            f"{pms:.1f} ms; peak device memory {peak:.2f} GiB; launches "
+            f"{launch}")
+        if not vrel <= EIG_PLAIN_RTOL:
+            fail(f"{label}: kernel and plain eigenvalues differ by {vrel:.3e}")
+        for kname in need:
+            if not launch.get(kname):
+                fail(f"{label} never launched {kname}")
+        run["label"] = label
+        eig_runs[key] = run
+        del ref
+        return run
+
+    def gate_closed(label, vals, want, rtol=EIG_CLOSED_RTOL):
+        rel = np.abs(np.sort(np.real(vals)) - np.sort(want)) / np.abs(want)
+        log(f"{label} against the closed form {np.sort(want)!r}: max "
+            f"relative error {rel.max():.3e} (tol {rtol:.0e})")
+        if not (rel <= rtol).all():
+            fail(f"{label}: eigenvalues {vals!r} vs closed form {want!r}")
+
+    def gate_converged(label, run, maxiter):
+        """Converged below EIG_TOL, the plain run in the same iterations
+        and spanning the same subspace to EIG_SUBSPACE_TOL."""
+        res = run["res"]
+        rn = np.asarray(res.resnorms.cpu() if isinstance(res.resnorms,
+                                                         torch.Tensor)
+                        else res.resnorms)
+        conv = getattr(res, "converged", bool((rn <= EIG_TOL).all()))
+        log(f"{label}: converged {conv}, residual norms {rn!r} (tol "
+            f"{EIG_TOL:.0e})")
+        if not (conv and run["iters"] < maxiter and (rn <= EIG_TOL).all()):
+            fail(f"{label}: not converged ({run['iters']} iterations, "
+                 f"residuals {rn!r})")
+        if run["iters"] != run["ref_iters"] or run["sin"] > EIG_SUBSPACE_TOL:
+            fail(f"{label}: plain run {run['ref_iters']} iterations against "
+                 f"{run['iters']}, subspace sin {run['sin']:.3e}")
+
+    lam_lo = closed_form(DIMS, EIG_NEV)
+    lam_hi = closed_form(DIMS, EIG_NEV, largest=True)
+    e_need = ("stencil_spmm", "dia_spmm", "chol_inv_small")
+    # e1 — LOBPCG SR with the AMG V-cycle (the headline), e2 — Block
+    # Davidson SR with the same preconditioner
+    for label, name in (("e1 LOBPCG + AMG", "LOBPCG"),
+                        ("e2 Block Davidson + AMG", "BLOCK_DAVIDSON")):
+        st_, ar_ = eigen_entry(name, {"Which": "SR",
+                                      "Convergence Tolerance": EIG_TOL},
+                               nev=EIG_NEV, amg=amg64)
+        run = eig_run(label.split()[0], f"{label} {GRID} f64", st_, ar_,
+                      need=e_need)
+        gate_converged(label, run, 200)
+        gate_closed(label, run["vals"], lam_lo)
+        del st_, ar_
+    # e3 — Block Krylov-Schur LM, block size 2, at a fixed restart budget:
+    # the basis stays on the card; the largest copy to the host is recorded
+    bks_params = {"Which": "LM", "Block Size": 2, "Convergence Tolerance": 0.0,
+                  "Maximum Restarts": BKS_RESTARTS}
+
+    @contextlib.contextmanager
+    def host_pulls():
+        """The largest device-to-host copy (elements) made through
+        Tensor.cpu() or Tensor.to() inside the block."""
+        biggest = [0]
+        real_cpu, real_to = torch.Tensor.cpu, torch.Tensor.to
+
+        def cpu(self, *a, **k):
+            if self.is_cuda:
+                biggest[0] = max(biggest[0], self.numel())
+            return real_cpu(self, *a, **k)
+
+        def to(self, *a, **k):
+            out = real_to(self, *a, **k)
+            if self.is_cuda and not out.is_cuda:
+                biggest[0] = max(biggest[0], self.numel())
+            return out
+
+        with mock.patch.object(torch.Tensor, "cpu", cpu), \
+                mock.patch.object(torch.Tensor, "to", to):
+            yield biggest
+
+    def rss_gib():
+        for line in pathlib.Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2 ** 20
+        return float("nan")
+
+    e3step, e3args = eigen_entry("Block Krylov Schur", bks_params,
+                                 nev=EIG_NEV, dims=DIMS)
+    rss0 = rss_gib()
+    with host_pulls() as pulled:
+        e3 = eig_run("e3", f"e3 Block Krylov-Schur LM {GRID} f64, "
+                     f"{BKS_RESTARTS} restarts", e3step, e3args,
+                     need=("stencil_spmm", "chol_inv_small"))
+    rss1 = rss_gib()
+    m_bks = 20  # the default basis: min(max(2·nev + 12, 20), n − nb)
+    lead = float(np.max(np.real(e3["vals"])))
+    log(f"e3 Block Krylov-Schur: {e3['iters']} Arnoldi steps (plain "
+        f"{e3['ref_iters']}, expected {BKS_STEPS}); leading Ritz value "
+        f"{lead!r} against λmax {lam_hi[0]!r} (Δ {lam_hi[0] - lead:.3e}); "
+        f"Ritz residual estimates {e3['res'].resnorms!r}; the largest copy "
+        f"to the host {pulled[0]} elements (basis {n64} x {m_bks}: "
+        f"{n64 * m_bks}); host RSS {rss0:.2f} -> {rss1:.2f} GiB")
+    if not (e3["iters"] == e3["ref_iters"] == BKS_STEPS):
+        fail(f"e3: {e3['iters']} and {e3['ref_iters']} steps, not "
+             f"{BKS_STEPS}")
+    if not lam_hi[0] - BKS_LEAD_WINDOW <= lead <= lam_hi[0] * (1 + 1e-12):
+        fail(f"e3: leading Ritz value {lead!r} outside [λmax − "
+             f"{BKS_LEAD_WINDOW}, λmax]")
+    if pulled[0] > (m_bks + 2) * m_bks:
+        fail(f"e3: a copy of {pulled[0]} elements went to the host")
+    # e3b — the same Block Krylov-Schur at rtol 1e-8 where the JAX package
+    # converges within its 20 restarts, beside its CPU count (gated within
+    # one restart's 12 steps)
+    st_, ar_ = eigen_entry("Block Krylov Schur", {"Which": "LM",
+                                                  "Block Size": 2},
+                           nev=EIG_NEV, dims=BKS_CONV_DIMS)
+    grid_b = "x".join(map(str, BKS_CONV_DIMS))
+    run = eig_run("e3b", f"e3b Block Krylov-Schur LM {grid_b} f64", st_,
+                  ar_, need=("stencil_spmm",))
+    log(f"e3b: {run['iters']} Arnoldi steps (JAX package, CPU f64: "
+        f"{BKS_CONV_CPU_STEPS})")
+    if not run["res"].converged or abs(run["iters"]
+                                       - BKS_CONV_CPU_STEPS) > 12:
+        fail(f"e3b: converged {run['res'].converged} in {run['iters']} "
+             f"steps (CPU {BKS_CONV_CPU_STEPS})")
+    # a block of 2 sees at most two vectors of an eigenspace: the reference
+    # returns λmax, two copies of the triple λ₂ and then λ₅ (the JAX package
+    # too); every value is held to the spectrum, the leading to λmax
+    spec_b = laplace_spectrum(BKS_CONV_DIMS)
+    gate_closed("e3b leading value", run["vals"][:1], spec_b[-1:])
+    gate_closed("e3b values", run["vals"], [
+        spec_b[np.argmin(np.abs(spec_b - v))] for v in np.real(run["vals"])])
+    # e4 — TraceMin, RTR, LANCZOS and POWER through eigen_entry, and
+    # Generalized Davidson on config 3's recirc2d through the factory
+    grid_s = "x".join(map(str, EIG_SMALL_DIMS))
+    lo_s = closed_form(EIG_SMALL_DIMS, EIG_NEV)
+    hi_s = closed_form(EIG_SMALL_DIMS, 1, largest=True)[0]
+    for name, params in EIG_SMALL_CASES:
+        st_, ar_ = eigen_entry(name, params, nev=EIG_NEV,
+                               dims=EIG_SMALL_DIMS)
+        run = eig_run(f"e4 {name}", f"e4 {name} {grid_s} f64", st_, ar_,
+                      need=(("stencil_spmv",) if name in ("LANCZOS", "POWER")
+                            else ("stencil_spmm", "chol_inv_small")))
+        log(f"e4 {name}: {run['iters'] or params['Num Blocks']} "
+            f"iterations, leading value "
+            f"{run['vals'][0]!r} (JAX package, CPU f64: {EIG_CPU[name]}"
+            + (f", {EIG_CPU_VALUES[name]!r})" if name in EIG_CPU_VALUES
+               else ")"))
+        if name in ("TraceMin", "RTR"):
+            gate_converged(f"e4 {name}", run, 100)
+            gate_closed(f"e4 {name}", run["vals"], lo_s)
+        elif name == "LANCZOS":
+            gate_closed("e4 LANCZOS leading Ritz value",
+                        run["vals"][:1], [hi_s], rtol=EIG_LANCZOS_RTOL)
+        elif not (run["iters"] == run["ref_iters"] == params[
+                "Maximum Iterations"] and run["vals"][0] <= hi_s):
+            fail(f"e4 POWER: {run['iters']} iterations, λ {run['vals']!r}")
+        del st_, ar_
+    a_gd = recirc2d(CONFIG3_NX, CONFIG3_NX)
+    ell_gd = csr_to_ell(a_gd, device="cuda")
+    v_gd = np.zeros((ell_gd.n_rows_pad, EIG_NEV))
+    v_gd[:a_gd.shape[0]] = np.random.default_rng(7).standard_normal(
+        (a_gd.shape[0], EIG_NEV))
+    gd_mgr = create_eigensolver("Generalized Davidson", {
+        "Which": "LM", "Maximum Iterations": EIG_GD_ITERS})
+
+    def gd_step(v0):
+        return gd_mgr.solve(EigenProblem(
+            op=lambda v: matvec.spmv(ell_gd, v), n=ell_gd.n_rows_pad,
+            nev=EIG_NEV, symmetric=False, v0=v0, device="cuda"))
+
+    grid_gd = f"{CONFIG3_NX}x{CONFIG3_NX}"
+    run = eig_run("e4 Generalized Davidson",
+                  f"e4 Generalized Davidson LM recirc2d {grid_gd} f64, "
+                  f"{EIG_GD_ITERS} iterations", gd_step,
+                  (torch.from_numpy(v_gd).to("cuda"),),
+                  need=("chol_inv_small",))
+    log(f"e4 Generalized Davidson: Ritz values {run['vals']!r}, max |θ| "
+        f"{np.abs(run['vals']).max()!r} (JAX package, CPU f64: "
+        f"{EIG_CPU['Generalized Davidson']} iterations, max |θ| "
+        f"{EIG_CPU_VALUES['Generalized Davidson']!r}); residuals "
+        f"{run['res'].resnorms!r}")
+    if not (run["iters"] == run["ref_iters"] == EIG_GD_ITERS
+            and np.isfinite(run["vals"]).all()):
+        fail(f"e4 Generalized Davidson: {run['iters']} iterations, values "
+             f"{run['vals']!r}")
+    # e5 — the pencil K x = λ M x, M the tensor Q1 mass (a 27-point
+    # StencilOp): LOBPCG with the AMG V-cycle at 256³, Block Davidson with
+    # the AMG V-cycle of an EIG_SMALL_DIMS hierarchy (unpreconditioned it
+    # does not converge there within 200 iterations in the JAX package
+    # either); its whitening reaches chol_inv_small at k up to 24
+    st_, ar_ = eigen_entry("LOBPCG", {"Which": "SR",
+                                      "Convergence Tolerance": EIG_TOL},
+                           nev=EIG_NEV, amg=amg64, mass=mass64)
+    run = eig_run("e5 LOBPCG", f"e5 LOBPCG + AMG, Q1 mass pencil {GRID} f64",
+                  st_, ar_, need=e_need)
+    gate_converged("e5 LOBPCG pencil", run, 200)
+    gate_closed("e5 LOBPCG pencil", run["vals"],
+                closed_form(DIMS, EIG_NEV, mass=True))
+    del st_, ar_
+    mass_s = StencilOp.create(EIG_SMALL_DIMS, mass27_stencil(),
+                              dtype="float64")
+    amg_s, _ = setup(f"{grid_s} f64 hierarchy (Block Davidson pencil)",
+                     lambda: SaAmg(laplace3d(*EIG_SMALL_DIMS, dtype=np.float64,
+                                             fmt="stencil"),
+                                   {"dtype": np.float64},
+                                   device="cuda").compute())
+    st_, ar_ = eigen_entry("Block Davidson", {"Which": "SR",
+                                              "Convergence Tolerance":
+                                                  EIG_TOL},
+                           nev=EIG_NEV, amg=amg_s, mass=mass_s)
+    run = eig_run("e5 Block Davidson",
+                  f"e5 Block Davidson + AMG, Q1 mass pencil {grid_s} f64",
+                  st_, ar_, need=e_need)
+    log(f"e5 Block Davidson pencil: {run['iters']} iterations (JAX package, "
+        f"CPU f64: {EIG_CPU['Block Davidson mass']})")
+    gate_converged("e5 Block Davidson pencil", run, 200)
+    gate_closed("e5 Block Davidson pencil", run["vals"],
+                closed_form(EIG_SMALL_DIMS, EIG_NEV, mass=True))
+    del st_, ar_
+    # e6 — shift-invert: eigs_near between the two smallest eigenvalues
+    # (Lanczos on (A − σI)⁻¹, inner MINRES at rtol 1e-10)
+    lam2 = closed_form(EIG_SMALL_DIMS, 2)
+    sigma = lam2[0] + 0.3 * (lam2[1] - lam2[0])
+    op_s = laplace3d(*EIG_SMALL_DIMS, dtype=np.float64, fmt="stencil")
+    v_s = np.zeros(op_s.n_rows_pad)
+    v_s[:op_s.n_rows] = np.random.default_rng(7).standard_normal(
+        op_s.n_rows)
+    run = eig_run("e6", f"e6 eigs_near sigma {sigma:.6e} {grid_s} f64",
+                  lambda v: eigs_near(lambda x: matvec.spmv(op_s, x), sigma,
+                                      2, v),
+                  (torch.from_numpy(v_s).to("cuda"),), need=("stencil_spmv",))
+    log(f"e6 eigs_near (JAX package, CPU f64: {EIG_CPU['eigs_near']} "
+        "Lanczos steps)")
+    gate_closed("e6 eigs_near", run["vals"], lam2)
+    eig_total_s = time.perf_counter() - t_eig
+    log(f"eigensolver phases: {eig_total_s:.1f} s with their set-up "
+        f"({eig_setup_s:.2f} s)")
+
     # -- 8. timings at the main paths' shapes --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     n0, n1, nd = fine.n_rows_pad, a1.n_rows_pad, len(a1.offsets)
@@ -2509,6 +2940,118 @@ def main():
             library=lambda: csr_k @ x_k, launches=k_dia,
             per_step=k_dia / max(int(kres_iters), 1),
             err=dslice_err["komplex"]))
+    # the twelfth slice's shapes (the eigensolvers, f64), each held to its
+    # plain version in 7w and each library call to the plain version first
+    e1r, e3r = eig_runs["e1"], eig_runs["e3"]
+    e5r, e5d = eig_runs["e5 LOBPCG"], eig_runs["e5 Block Davidson"]
+    conv_e4 = stencil_conv(fine64, EIG_NEV, torch.float64)
+    conv_e2 = stencil_conv(fine64, 2, torch.float64)
+    conv_m4 = stencil_conv(mass64, EIG_NEV, torch.float64)
+    xe4b, xe2b = xe4.T.contiguous(), xe2.T.contiguous()
+    for label, conv_, xb, op_, xk in (
+            ("k=4", conv_e4, xe4b, fine64, xe4), ("k=2", conv_e2, xe2b,
+                                                   fine64, xe2),
+            ("27-point mass k=4", conv_m4, xe4b, mass64, xe4)):
+        check(f"conv3d f64 library call vs stencil SpMM {label}",
+              conv_(xb).reshape(xk.shape[1], -1).T,
+              stencil_spmv_plain(op_, xk), 1e-12)
+    a1_64 = levels64[0]
+    x1e = randn((a1_64.n_rows_pad, EIG_NEV), torch.float64, seed=99)
+    csr1_64 = dia_as_csr(a1_64)
+    nd1_64 = len(a1_64.offsets)
+    check("sparse CSR @ dense library call vs dia SpMM (f64 level 1, k=4)",
+          csr1_64 @ x1e, dia_spmv_plain(a1_64, x1e), 1e-12)
+
+    def chol_lib(g):
+        def run():
+            l, _ = torch.linalg.cholesky_ex(g)
+            return torch.linalg.solve_triangular(
+                l, torch.eye(g.shape[0], device=g.device, dtype=g.dtype),
+                upper=False)
+        return run
+
+    for k in (EIG_NEV, 24):
+        check(f"cholesky_ex + solve_triangular library call vs "
+              f"chol_inv_small k={k} f64", chol_lib(g_eig[k])(),
+              chol_inv_small_plain(g_eig[k])[1],
+              CHOL_TOL[torch.float64]["vs_plain"])
+    e1_it, e5_it = max(e1r["iters"], 1), max(e5r["iters"], 1)
+    e3_steps = max(e3r["iters"] // 2, 1)  # block steps of 2 columns
+    rows += [
+        dict(name="stencil_spmm", source="stencil_spmv.cu",
+             replaces="stencil_op.py:654", also_replaces=None,
+             shape=f"{GRID} x k=4 f64, AMG-preconditioned LOBPCG (block "
+                   "applies and the V-cycle's fine level; library: conv3d "
+                   "on a (4, 1, ...) batch)",
+             bytes=2 * n64 * EIG_NEV * 8, flops=2 * fine64.nnz * EIG_NEV,
+             flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: stencil_spmm(fine64, xe4),
+             plain=lambda: stencil_spmv_plain(fine64, xe4),
+             library=lambda: conv_e4(xe4b),
+             launches=e1r["launches"].get("stencil_spmm", 0),
+             per_step=e1r["launches"].get("stencil_spmm", 0) / e1_it,
+             err=eig_err["spmm4"]),
+        dict(name="stencil_spmm", source="stencil_spmv.cu",
+             replaces="stencil_op.py:654", also_replaces=None,
+             shape=f"{GRID} x k=2 f64, Block Krylov-Schur (per block step)",
+             bytes=2 * n64 * 2 * 8, flops=2 * fine64.nnz * 2,
+             flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: stencil_spmm(fine64, xe2),
+             plain=lambda: stencil_spmv_plain(fine64, xe2),
+             library=lambda: conv_e2(xe2b),
+             launches=e3r["launches"].get("stencil_spmm", 0),
+             per_step=e3r["launches"].get("stencil_spmm", 0) / e3_steps,
+             err=eig_err["spmm2"]),
+        dict(name="stencil_spmm", source="stencil_spmv.cu",
+             replaces="stencil_op.py:654", also_replaces=None,
+             shape=f"{GRID} 27-point Q1 mass x k=4 f64, LOBPCG on the "
+                   "pencil (K, M and the V-cycle share the count)",
+             bytes=2 * n64 * EIG_NEV * 8, flops=2 * mass64.nnz * EIG_NEV,
+             flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: stencil_spmm(mass64, xe4),
+             plain=lambda: stencil_spmv_plain(mass64, xe4),
+             library=lambda: conv_m4(xe4b),
+             launches=e5r["launches"].get("stencil_spmm", 0),
+             per_step=e5r["launches"].get("stencil_spmm", 0) / e5_it,
+             err=eig_err["mass"]),
+        dict(name="dia_spmm", source="dia_spmv.cu",
+             replaces="dia_spmv.py:273", also_replaces="dia_spmv.py:430",
+             shape=f"f64 hierarchy level 1, {a1_64.n_rows_pad} rows x "
+                   f"{nd1_64} diags x k=4 f64, AMG-preconditioned LOBPCG "
+                   "(all coarse levels share the count)",
+             bytes=(nd1_64 + 2 * EIG_NEV) * a1_64.n_rows_pad * 8,
+             flops=2 * nonzeros(a1_64) * EIG_NEV,
+             flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: dia_spmm(a1_64, x1e),
+             plain=lambda: dia_spmv_plain(a1_64, x1e),
+             library=lambda: csr1_64 @ x1e,
+             launches=e1r["launches"].get("dia_spmm", 0),
+             per_step=e1r["launches"].get("dia_spmm", 0) / e1_it,
+             err=eig_err["dia4"]),
+        dict(name="chol_inv_small", source="chol_inv_small.cu",
+             replaces="smalldense.py:123", also_replaces=None,
+             shape="k=4 f64 (LOBPCG's CholQR2 panels)",
+             bytes=3 * EIG_NEV ** 2 * 8, flops=2 * EIG_NEV ** 3 // 3,
+             flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: chol_inv_small(g_eig[EIG_NEV]),
+             plain=lambda: chol_inv_small_plain(g_eig[EIG_NEV]),
+             library=chol_lib(g_eig[EIG_NEV]),
+             launches=e1r["launches"].get("chol_inv_small", 0),
+             per_step=e1r["launches"].get("chol_inv_small", 0) / e1_it,
+             err=eig_err[f"chol{EIG_NEV}"]),
+        dict(name="chol_inv_small", source="chol_inv_small.cu",
+             replaces="smalldense.py:123", also_replaces=None,
+             shape="k=24 f64 (Block Davidson's whitening on the mass "
+                   "pencil, k 4..24; all widths share the count)",
+             bytes=3 * 24 ** 2 * 8, flops=2 * 24 ** 3 // 3,
+             flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: chol_inv_small(g_eig[24]),
+             plain=lambda: chol_inv_small_plain(g_eig[24]),
+             library=chol_lib(g_eig[24]),
+             launches=e5d["launches"].get("chol_inv_small", 0),
+             per_step=e5d["launches"].get("chol_inv_small", 0)
+             / max(e5d["iters"], 1),
+             err=eig_err["chol24"])]
     # fused kernels the polynomial wrappers launched on their own paths
     fused_launches = {"stencil_poly": c_fused, "stencil_powers": s_fused}
     # the empty kernel and chol_inv_small at the block path's k and at 32:
@@ -2765,6 +3308,15 @@ def main():
         f"(first solve {kms:.1f} ms); dense_solve {DENSE_N}² f64 "
         f"{dense_ms:.2f} ms")
 
+    for key, run in eig_runs.items():
+        it = run["iters"]
+        per = f", {run['warm'] / it:.3f} ms/iter over {it} iterations" \
+            if it else ""
+        log(f"{run['label']}: warm {run['warm']:.2f} ms{per} (first "
+            f"{run['first']:.1f} ms; plain versions {run['plain']:.1f} ms); "
+            f"peak device memory {run['peak']:.2f} GiB; launches "
+            f"{run['launches']}")
+
     # -- 9. one solve of each path under the profiler: device time by kernel
     # (last, so that it cannot disturb the timings above)
     profile("CG solve", lambda: step(b, state), focus="stencil_kernel")
@@ -2799,6 +3351,11 @@ def main():
             lambda: tl_step(tlm)(tlb), focus="dia_kernel")
     profile(f"Komplex {grid_k} solve (set-up included)", lambda: kstep(kbz),
             focus="dia_kernel")
+
+    for key in ("e1", "e2", "e3", "e5 LOBPCG"):
+        run = eig_runs[key]
+        profile(run["label"], lambda: run["step"](*run["args"]),
+                focus="stencil_mv_kernel")
 
     log(f"chip_smoke total: {time.perf_counter() - t_main:.1f} s")
     log(card)

@@ -7,12 +7,13 @@ BDIA, config 2 and config 4 grids cut as below, the uncoupled AMG's 128³ →
 16³, config 3's 128² → 32² with the CPU's 29 block steps, maxwell2d 128² →
 24², other 128³ cases → 24³, the direct solvers' laplace2d 256² → 32² and
 64² → 16², Komplex 128² → 24² with the CPU's count there, the dense solve
-4096² → 256²) on the CPU: every kernel wrapper takes its launch path, and each launch computes
-the plain version instead (so the launch counters move and every gate,
+4096² → 256², the eigensolvers' 64³ grid → 12³) on the CPU: every kernel
+wrapper takes its launch path, and each launch computes the plain version
+instead (so the launch counters move and every gate,
 count and log line of the script runs); CUDA events time the host, CUDA
 graphs become plain calls, the profiler records the CPU only, and
 ``nvidia-smi`` is not called. It checks control flow, shapes and gates,
-not kernels or times. About 90 s on a few cores.
+not kernels or times. About 330–390 s on a few cores.
 """
 import contextlib
 import importlib
@@ -138,6 +139,7 @@ reps = [("DIMS = (256, 256, 256)", "DIMS = (32, 32, 32)"),
         ("KOMPLEX_NX = 128", "KOMPLEX_NX = 24"),
         ("KOMPLEX_CPU_ITERS = 15", "KOMPLEX_CPU_ITERS = 14"),
         ("DENSE_N = 4096", "DENSE_N = 256"),
+        ("EIG_SMALL_DIMS = (64, 64, 64)", "EIG_SMALL_DIMS = (12, 12, 12)"),
         ("(128, 128, 128)", "(24, 24, 24)"),
         ('"cuda"', '"cpu"'),
         (",\n            torch.profiler.ProfilerActivity.CUDA]", "]")]

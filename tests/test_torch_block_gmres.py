@@ -7,7 +7,11 @@ Both packages build their own hierarchy and solve from the same numpy
 right-hand side on the CPU. In f64 at rtol 1e-8 they must take the same
 number of block steps, converge in every column and agree in x to 1e-8
 (max|Δ| / max|x|); with a bf16 basis within one block step; in f32 at rtol
-1e-5 (the ``block_entry`` twin) within one block step and 1e-4.
+1e-5 (the ``block_entry`` twin) within one block step and 1e-4. Each
+package builds a grid's hierarchy once for the tests of one process, and
+the port runs on one intra-op thread (the suite runs a process a core;
+these small tensors gain nothing from more threads and lose much to
+oversubscription).
 """
 import functools
 
@@ -32,6 +36,14 @@ from trilinos_tpu_torch.solvers import block_gmres
 SETTINGS = dict(num_blocks=25, max_restarts=10)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.abs(got - want).max() / np.abs(want).max()
@@ -45,12 +57,18 @@ def rhs(op, nrhs, dtype):
 
 
 @functools.lru_cache(maxsize=None)
+def jax_hierarchy(dims, dtype):
+    """The JAX package's operator, hierarchy and its state on one grid."""
+    op = j_laplace3d(*dims, dtype=dtype, fmt="stencil")
+    m = JSaAmg(op, {"dtype": dtype}).compute()
+    return op, m, m.state()
+
+
+@functools.lru_cache(maxsize=None)
 def jax_solve(dims, nrhs, dtype, rtol, ortho="CGS2", basis_dtype=None):
     """The JAX package's solve, shared by the tests of one process:
     (b, x, block steps, converged)."""
-    op = j_laplace3d(*dims, dtype=dtype, fmt="stencil")
-    m = JSaAmg(op, {"dtype": dtype}).compute()
-    st = m.state()
+    op, m, st = jax_hierarchy(dims, dtype)
     b = rhs(op, nrhs, dtype)
     res = j_block_gmres(lambda v: j_spmv(op, v), jnp.asarray(b),
                         prec=lambda v: m.apply_state(st, v), rtol=rtol,
@@ -58,10 +76,16 @@ def jax_solve(dims, nrhs, dtype, rtol, ortho="CGS2", basis_dtype=None):
     return b, np.asarray(res.x), int(res.iters), np.asarray(res.converged)
 
 
+@functools.lru_cache(maxsize=None)
+def port_hierarchy(dims, dtype):
+    """The port's operator, hierarchy and its state on one grid."""
+    op = laplace3d(*dims, dtype=dtype, fmt="stencil")
+    m = SaAmg(op, {"dtype": dtype}, device="cpu").compute()
+    return op, m, m.state()
+
+
 def port_solve(dims, b, rtol, **kw):
-    op = laplace3d(*dims, dtype=b.dtype, fmt="stencil")
-    m = SaAmg(op, {"dtype": b.dtype}, device="cpu").compute()
-    st = m.state()
+    op, m, st = port_hierarchy(dims, b.dtype)
     return block_gmres(lambda v: spmv(op, v), torch.from_numpy(b),
                        prec=lambda v: m.apply_state(st, v), rtol=rtol,
                        **SETTINGS, **kw)

@@ -7,9 +7,14 @@ same solution to 1e-9 (max|Δ| / max|x|); in f32, within one iteration and
 the JAX bench's solves, the same iteration count and x to 1e-10. Also: the
 port imports neither JAX nor the JAX package, entry points refuse to run
 without a card unless asked for the CPU, the kernel launch counters stay 0
-on the CPU, and float32 matmuls stay in full precision.
+on the CPU, and float32 matmuls stay in full precision. The JAX package's
+elasticity matrix is assembled once for the tests of one process, and the
+port runs on one intra-op thread (the suite runs a process a core; these
+small tensors gain nothing from more threads and lose much to
+oversubscription).
 """
 import ast
+import functools
 import pathlib
 
 import numpy as np
@@ -31,7 +36,7 @@ from trilinos_tpu.solvers import cg as j_cg
 import trilinos_tpu_torch
 from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
                                       bsr_gmres_entry, cheb_entry,
-                                      elasticity_entry, entry,
+                                      eigen_entry, elasticity_entry, entry,
                                       fused_cg_entry, gmres_entry,
                                       komplex_entry, mm_block_gmres_entry,
                                       sstep_entry, uncoupled_amg_entry)
@@ -44,6 +49,20 @@ from trilinos_tpu_torch.ops import (bdia_spmm, bdia_spmv, cg_fused_iteration,
 from trilinos_tpu_torch.precond import BlockStructuredAmg, SaAmg
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.lru_cache(maxsize=None)
+def j_elasticity(dims):
+    """The JAX package's Galeri elasticity3d (E = 1) on ``dims`` nodes."""
+    return jfem.elasticity3d(*dims, e_mod=1.0)
 
 
 def rel(got, want):
@@ -277,7 +296,7 @@ def test_elasticity_entry_matches_jax(coarse_max):
     step, (b, state) = elasticity_entry(dims, np.float64, device="cpu",
                                         amg=amg)
     res = step(b, state)
-    ja = jfem.elasticity3d(*dims, e_mod=1.0)
+    ja = j_elasticity(dims)
     jm = JBlockAmg(ja, params, node_dims=dims,
                    nullspace=jfem.rigid_body_modes(*dims),
                    n_equations=3).compute()
@@ -299,7 +318,7 @@ def test_bdia_cg_entry_matches_jax():
     bdia_spmm.launches = 0
     step, (b,) = bdia_cg_entry((8, 8, 8), dtype=np.float64, device="cpu")
     res = step(b)
-    ja = j_csr_to_bdia(jfem.elasticity3d(8, 8, 8, e_mod=1.0), 3)
+    ja = j_csr_to_bdia(j_elasticity((8, 8, 8)), 3)
     op, pack, unpack = j_bdia_plane_solver_op(ja)
     jb = jax_elasticity_rhs(ja, ja.n_rows_pad)
     np.testing.assert_array_equal(b.numpy(), jb)
@@ -341,6 +360,14 @@ def test_port_imports_no_jax():
             "trilinos_tpu_torch/ops/cg_fused.py",
             "trilinos_tpu_torch/precond/chebyshev.py",
             "trilinos_tpu_torch/eigen/lanczos.py",
+            "trilinos_tpu_torch/eigen/lobpcg.py",
+            "trilinos_tpu_torch/eigen/krylov_schur.py",
+            "trilinos_tpu_torch/eigen/davidson.py",
+            "trilinos_tpu_torch/eigen/gen_davidson.py",
+            "trilinos_tpu_torch/eigen/tracemin.py",
+            "trilinos_tpu_torch/eigen/rtr.py",
+            "trilinos_tpu_torch/eigen/spectral.py",
+            "trilinos_tpu_torch/eigen/factory.py",
             "trilinos_tpu_torch/solvers/sstep_gmres.py",
             "trilinos_tpu_torch/ops/bdia_spmv.py",
             "trilinos_tpu_torch/ops/fe.py",
@@ -395,7 +422,7 @@ def test_default_device_needs_a_card():
     for fn in (block_entry, cheb_entry, sstep_entry, fused_cg_entry,
                elasticity_entry, bdia_cg_entry, gmres_entry,
                bsr_gmres_entry, mm_block_gmres_entry, uncoupled_amg_entry,
-               komplex_entry):
+               komplex_entry, lambda: eigen_entry("LOBPCG")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
     from trilinos_tpu_torch.galeri import laplace3d

@@ -112,6 +112,18 @@ level packs as DIA and the coarse levels as ELL, P and Pᵀ as ELL. The CG
 operator is the hierarchy's stored fine level; ``step(b, state)`` as
 ``entry()``.
 
+``eigen_entry(name)``: the named eigensolver kind through the Anasazi
+factory, ``create_eigensolver(name, params).solve(EigenProblem(...))``, on
+the matrix-free Galeri Laplace3D stencil (float64 by default), ``nev``
+eigenpairs; preconditioned by the structured hierarchy's V-cycle when one
+is given as ``amg=`` (its grid, dtype and device then), with ``mass=`` an
+SPD mass operator (a stored or stencil matrix, or a callable) for the
+pencil A x = λ M x. The start block is ``default_rng(7)`` normals, as wide
+as the kind's own default start (1-D for LANCZOS and POWER), zero in the
+pad rows, whose stencil rows map y = x and would otherwise add the
+eigenvalue 1; ``step(v0, state)`` returns the kind's result, with the
+manager as ``step.manager`` and the operator as ``step.operator``.
+
 Every entry takes ``device`` (``None`` means the CUDA card and raises
 without one); the hierarchy paths also take an already-built hierarchy as
 ``amg=`` so one hierarchy can serve several paths, and their grid, dtype
@@ -129,6 +141,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device, torch_dtype
+from .eigen import EigenProblem, create_eigensolver
 from .galeri import (elasticity3d, laplace2d, laplace3d, recirc2d,
                      rigid_body_modes)
 from .io import read_hb, read_sparse, write_sparse
@@ -448,3 +461,37 @@ def uncoupled_amg_entry(dims=(16, 16, 16), dtype=np.float32, device=None,
                     {"dtype": dtype, "aggregation: type": "uncoupled"},
                     device=resolve_device(device)).compute()
     return _amg_cg(amg.fine_op, amg)
+
+
+def _eigen_start_width(mgr, nev, n):
+    """Columns of the start block a kind would draw itself (0: a
+    vector)."""
+    bs = int(mgr.params["Block Size"]) or 0
+    return {"lobpcg": bs or nev, "bks": bs or 1, "davidson": bs or nev,
+            "gen_davidson": bs or nev, "tracemin": bs or min(nev + 2, n),
+            "rtr": bs or nev, "lanczos": 0, "power": 0}[mgr.kind]
+
+
+def eigen_entry(name, params=None, dims=(16, 16, 16), nev=4,
+                dtype=np.float64, device=None, amg=None, mass=None):
+    mgr = create_eigensolver(name, params)
+    if amg is None:
+        op = laplace3d(*dims, dtype=dtype, fmt="stencil")
+        dev, dt, st = resolve_device(device), torch_dtype(dtype), None
+    else:
+        op, dev, dt, st = amg.fine_op, amg.device, amg.dtype, amg.state()
+    n, npad = op.n_rows, op.n_rows_pad
+    width = _eigen_start_width(mgr, nev, npad)
+    host = np.zeros((npad, width) if width else npad)
+    host[:n] = np.random.default_rng(7).standard_normal(host[:n].shape)
+    m_op = ((lambda v: spmv(mass, v)) if hasattr(mass, "n_rows_pad")
+            else mass)
+
+    def step(v0: torch.Tensor, st):
+        prec = None if st is None else (lambda v: amg.apply_state(st, v))
+        return mgr.solve(EigenProblem(
+            op=lambda v: spmv(op, v), n=npad, nev=nev, prec=prec, v0=v0,
+            dtype=dt, m=m_op, device=dev))
+
+    step.manager, step.operator = mgr, op
+    return step, (torch.from_numpy(host).to(dev, dt), st)
