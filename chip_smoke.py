@@ -288,6 +288,29 @@ EIG_CPU_VALUES = {"LANCZOS": 11.992993347212352,  # the leading Ritz value
                   "Generalized Davidson": 228.61304284406185}  # max |θ|
 
 
+# the distributed layer (section 7x): rank processes on the one card over
+# the gloo transport, which stages device buffers through host memory
+DIST_RANKS = 4
+DIST_C4_DIMS = (128, 128, 128)  # BASELINE config 4 row-partitioned
+DIST_AMG_DIMS = (256, 256, 256)  # structured AMG-PCG on the z-slab stencil
+# the grid of the phases held to the JAX package's distributed counts (a
+# 4-device mesh on the CPU, f64, scripts/dist_cpu_counts.py): config 4,
+# fused Chebyshev PCG (degree 4, λmax bound DIST_CHEB_LMAX), and SA-AMG PCG
+# with the host set-up (dist_amg) and the distributed one (dist_amg_blocks)
+DIST_SMALL_DIMS = (64, 64, 64)
+DIST_CHEB_LMAX = 2.0  # Gershgorin bound of D⁻¹A for the 7-point Laplacian
+DIST_RTOL = 1e-8
+DIST_CPU_ITERS = {"config4": 233, "cheb_fused": 63, "amg": 14,
+                  "amg_blocks": 14}
+DIST_C4_TRUE_MAX = 1e-8  # the gathered solution's true relative residual
+DIST_C4_X_TOL = 1e-6  # against the single-card config-4 solution
+# the JAX package's own distributed-vs-serial CG agreement (tests/test_dist.py
+# test_cg_matches_serial: at most 2 iterations apart)
+DIST_SERIAL_ITERS_TOL = 2
+DIST_MV_TOL = 1e-12  # k = 4 distributed SpMV and its transpose vs serial
+DIST_MV_K = 4
+
+
 def mass27_stencil():
     """The tensor Q1 mass stencil M₁⊗M₁⊗M₁, M₁ = tridiag(1, 4, 1)/6: 27
     constant terms (a StencilOp's (offset, coefficient) list)."""
@@ -571,6 +594,221 @@ def profile(label, fn, focus=None):
         hits = [v for key, v in by_kernel.items() if focus in key]
         log(f"profiled {label}: {focus} {sum(ms for ms, _ in hits):.3f} ms "
             f"of device time in {sum(n for _, n in hits)} launches")
+
+
+def device_busy(fn):
+    """(device ms, wall ms) of one run of ``fn`` in this process: the summed
+    device time of its CUDA kernels under the profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy, wall
+
+
+def kernel_timing(kernel, plain, library, shape, nbytes, flops):
+    """The kernel row fields a rank measures: graph-replay ms of the kernel,
+    its plain version and the library call (or None), its host path."""
+    return dict(shape=shape, bytes=nbytes, flops=flops,
+                ms=graph_ms(kernel), host_path_ms=time_ms(kernel),
+                plain_ms=graph_ms(plain),
+                library_ms=graph_ms(library) if library else None)
+
+
+def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
+    """Body of each rank of section 7x (one process a rank on the card):
+    config 4 row-partitioned at c4_dims and small_dims, the k = 4
+    distributed SpMV and its transpose, structured AMG-PCG on the z-slab
+    stencil at amg_dims, and on small_dims fused-Chebyshev PCG and SA-AMG
+    PCG with both set-ups. Each solve runs with the counts at 0 just
+    before and read just after; each kernel of a path is held against its
+    plain version on this rank's data first. Rank 0 then times the
+    kernels at the ranks' shapes while the others wait."""
+    from trilinos_tpu_torch.entry import (dist_amg_entry,
+                                          dist_pipelined_cg_entry)
+    from trilinos_tpu_torch.galeri import laplace3d
+    from trilinos_tpu_torch.ops import (dia_spmm, dia_spmv, dia_spmv_plain,
+                                        stencil_poly_apply,
+                                        stencil_poly_plain, stencil_spmv,
+                                        stencil_spmv_plain)
+    from trilinos_tpu_torch.parallel import dist_setup
+    from trilinos_tpu_torch.parallel import distmatrix as D
+    from trilinos_tpu_torch.parallel import driver as drv
+    from trilinos_tpu_torch.solvers import cg
+
+    kern = {"dia_spmv": dia_spmv, "dia_spmm": dia_spmm,
+            "stencil_spmv": stencil_spmv, "stencil_poly": stencil_poly_apply}
+    me, p = comm.index(), comm.size
+    out = {}
+
+    def chunk(rmap, host, dtype=torch.float64):
+        return torch.from_numpy(rmap.local_chunk(
+            rmap.to_padded(host), me).copy()).to(device, dtype)
+
+    def run(label, step, *args, **kw):
+        """One solve with the counts at 0 just before and read just after;
+        the result's plain fields go to out[label]."""
+        zero(kern)
+        comm.staged_bytes = 0
+        torch.cuda.synchronize()
+        comm.barrier()
+        t0 = time.perf_counter()
+        res = step(*args, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[label] = dict(iters=int(res.iters), resnorm=float(res.resnorm),
+                          converged=bool(res.converged), ms=ms,
+                          launches=counts(kern), staged=comm.staged_bytes)
+        return res
+
+    def bitwise(label, got, want):
+        out.setdefault("err", {})[label] = float((got - want).abs().max())
+
+    # config 4 row-partitioned, 128³ f64: DIA interiors, halo-overlap apply
+    t0 = time.perf_counter()
+    step, (b,) = dist_pipelined_cg_entry(c4_dims, n_ranks=p, comm=comm,
+                                         device=device)
+    setup_s = time.perf_counter() - t0
+    al = step.matrix
+    bitwise("c4 interior", dia_spmv(al.interior, b),
+            dia_spmv_plain(al.interior, b))
+    res = run("c4", step, b)
+    out["c4"].update(x=res.x, setup_s=setup_s, mode=al.plan.mode,
+                     halo_rows=int(al.plan.ghost_valid.sum()),
+                     rows=al.interior.n_rows_pad,
+                     diags=len(al.interior.offsets))
+    comm.staged_bytes = 0
+    comm.barrier()
+    busy, wall = device_busy(lambda: step(b))
+    out["c4"].update(busy_ms=busy, warm_ms=wall,
+                     warm_staged=comm.staged_bytes)
+    # the k = 4 distributed SpMV and its transpose against the serial one
+    n4 = al.row_map.n_global
+    xk = chunk(al.row_map, np.random.default_rng(11).standard_normal(
+        (n4, DIST_MV_K)))
+    out["mv"] = dict(y=drv.dist_spmv(al, xk, comm),
+                     yt=drv.dist_spmv_t(al, xk, comm))
+    c4_timing = None
+    if me == 0:
+        csr = dia_as_csr(al.interior)
+        nnz = int((al.interior.data != 0).sum())
+        c4_timing = kernel_timing(
+            lambda: dia_spmv(al.interior, b),
+            lambda: dia_spmv_plain(al.interior, b), lambda: csr @ b,
+            f"rank-local interior of config 4 at {p} ranks: "
+            f"{al.interior.n_rows_pad} rows x {len(al.interior.offsets)} "
+            f"diags f64", (len(al.interior.offsets) + 2)
+            * al.interior.n_rows_pad * 8, 2 * nnz)
+    comm.barrier()
+    del step, al, b, xk
+
+    # config 4 at the small grid, held to the JAX package's count
+    step, (b,) = dist_pipelined_cg_entry(small_dims, n_ranks=p, comm=comm,
+                                         device=device)
+    run("c4_small", step, b)
+    del step, b
+
+    # structured AMG-PCG on the z-slab stencil, 256³ f32
+    t0 = time.perf_counter()
+    step, (b,) = dist_amg_entry(amg_dims, n_ranks=p, comm=comm,
+                                device=device)
+    setup_s = time.perf_counter() - t0
+    op_s = step.operator
+    ext = D.gather_extended(op_s.sel, op_s.valid, op_s.plan, b, comm)
+    bitwise("amg slab stencil", stencil_spmv(op_s.op_local, ext),
+            stencil_spmv_plain(op_s.op_local, ext))
+    run("amg", step, b)
+    out["amg"].update(setup_s=setup_s, mode=op_s.plan.mode,
+                      halo_rows=int(op_s.plan.ghost_valid.sum()),
+                      slab=op_s.op_local.dims)
+    amg_timing = None
+    if me == 0:
+        conv = stencil_conv(op_s.op_local)
+        n_ext = op_s.op_local.n_rows_pad
+        amg_timing = kernel_timing(
+            lambda: stencil_spmv(op_s.op_local, ext),
+            lambda: stencil_spmv_plain(op_s.op_local, ext),
+            lambda: conv(ext),
+            "extended slab " + "x".join(map(str, op_s.op_local.dims))
+            + f" f32 (one rank of {p} at {'x'.join(map(str, amg_dims))})",
+            2 * n_ext * 4, 2 * op_s.op_local.nnz)
+    comm.barrier()
+    del step, b, ext, op_s
+
+    # fused Chebyshev PCG on the small grid, f64: one depth-4 exchange and
+    # one stencil_poly_apply an apply
+    op = laplace3d(*small_dims, dtype=np.float64, fmt="stencil")
+    ds = D.distribute_stencil(op, p)
+    sl = ds.local(me, device)
+    pc = drv.dist_cheb_fused(op, p, degree=4, lmax=DIST_CHEB_LMAX,
+                             device=device)
+    lp = pc.local(me, device)
+    m = lp.make(comm, drv.local_op(sl, comm))
+    b = chunk(ds.row_map, np.random.default_rng(1).standard_normal(
+        op.n_rows))
+    stages, op_c, _, _ = pc.consts
+    ext = D.gather_extended(lp.local["sel"], lp.local["valid"],
+                            lp.local["plan"], b, comm)
+    zb = tuple(lp.local["zb"].tolist())
+    bitwise("cheb_fused slab polynomial",
+            stencil_poly_apply(op_c, stages, ext, z_bounds=zb),
+            stencil_poly_plain(op_c, stages, ext, zb))
+    run("cheb_fused", drv.dist_solve, cg, sl, b, comm=comm, prec=m,
+        rtol=DIST_RTOL, maxiter=500)
+    poly_timing = None
+    if me == 0:
+        n_ext = op_c.n_rows_pad
+        poly_timing = kernel_timing(
+            lambda: stencil_poly_apply(op_c, stages, ext, z_bounds=zb),
+            lambda: stencil_poly_plain(op_c, stages, ext, zb), None,
+            "extended slab " + "x".join(map(str, op_c.dims))
+            + f" f64, Chebyshev s={len(stages)} with z-bounds {zb} (rank 0)",
+            2 * n_ext * 8, sum((2 * op_c.nnz + n_ext if a else 0)
+                               + 2 * n_ext * ((bt != 0) + (g != 0)
+                                              + (z != 0))
+                               for a, bt, g, z in stages))
+    comm.barrier()
+
+    # SA-AMG PCG on the stored small grid: host and distributed set-ups
+    a = laplace3d(*small_dims)
+    dm = D.distribute(a, p)
+    am = dm.local(me, device)
+    b = chunk(dm.row_map, np.random.default_rng(1).standard_normal(
+        a.shape[0]))
+    for label, make in (
+            ("amg_host", lambda: drv.dist_amg(a, dm.row_map)),
+            ("amg_blocks", lambda: drv.dist_amg_blocks(
+                dist_setup.split_rows(a, dm.row_map), dm.row_map))):
+        t0 = time.perf_counter()
+        pcm = make()
+        setup_s = time.perf_counter() - t0
+        run(label, drv.dist_solve, cg, am, b, comm=comm, prec=pcm,
+            rtol=DIST_RTOL)
+        out[label].update(setup_s=setup_s,
+                          levels=len(pcm.arrays["levels"]) + 1)
+    out["timing"] = dict(c4=c4_timing, amg=amg_timing, poly=poly_timing)
+    out["backend"] = comm.backend
+    return out
+
+
+def dist_rank_c4_one(comm, device, c4_dims):
+    """Config 4 on one rank over the nccl transport (the plumbing on the
+    card): its iterations and launches."""
+    from trilinos_tpu_torch.entry import dist_pipelined_cg_entry
+    from trilinos_tpu_torch.ops import dia_spmv
+
+    step, (b,) = dist_pipelined_cg_entry(c4_dims, n_ranks=1, comm=comm,
+                                         device=device)
+    dia_spmv.launches = 0
+    res = step(b)
+    return dict(iters=int(res.iters), converged=bool(res.converged),
+                launches=dia_spmv.launches, backend=comm.backend,
+                staged=comm.staged_bytes)
 
 
 def main():
@@ -1770,6 +2008,7 @@ def main():
     if abs(int(c4ref.iters) - c4iters) > 1 or not c4rel_x <= CONFIG4_X_TOL:
         fail(f"config 4 kernel and plain solves differ: iters {c4iters} vs "
              f"{int(c4ref.iters)}, x {c4rel_x:.3e}")
+    c4x = c4res.x  # the distributed config 4 is held to this solution
     del c4ref, c4res
     c4warm_ms = warm(c4step, c4b)
 
@@ -2602,6 +2841,150 @@ def main():
     log(f"eigensolver phases: {eig_total_s:.1f} s with their set-up "
         f"({eig_setup_s:.2f} s)")
 
+    # -- 7x. the distributed layer: DIST_RANKS rank processes on this card --
+    # (gloo; the kernels were built above, before any rank starts, so the
+    # ranks load them and never race on the build directory)
+    from trilinos_tpu_torch.parallel import driver as pdrv
+    from trilinos_tpu_torch.parallel.map import Map
+
+    log(card)
+    log(f"distributed phases: {DIST_RANKS} rank processes share this one "
+        "card over the gloo transport, which stages every exchange and "
+        "reduction through host memory: their times are not scaling "
+        "numbers")
+    t0 = time.perf_counter()
+    ranks = pdrv.launch(dist_rank_phases, DIST_RANKS, DIST_C4_DIMS,
+                        DIST_AMG_DIMS, DIST_SMALL_DIMS, device="cuda",
+                        backend="gloo", timeout=900.0)
+    dist_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = pdrv.launch(dist_rank_c4_one, 1, DIST_C4_DIMS, device="cuda",
+                      backend="nccl", timeout=600.0)[0]
+    one_s = time.perf_counter() - t0
+    log(f"distributed phases: {dist_s:.1f} s for the {DIST_RANKS}-rank "
+        f"group, {one_s:.1f} s for the one-rank nccl group (spawn and "
+        "set-up included)")
+    for key in ranks[0]["err"]:
+        errs = [r["err"][key] for r in ranks]
+        log(f"check {key}: kernel vs plain on each rank's data, max|Δ| "
+            f"{errs} (bitwise)")
+        if any(e != 0 for e in errs):
+            fail(f"{key}: kernel and plain versions differ on a rank")
+    labels = ("c4", "c4_small", "amg", "cheb_fused", "amg_host",
+              "amg_blocks")
+    for label in labels:
+        its = [r[label]["iters"] for r in ranks]
+        if len(set(its)) != 1 or not all(r[label]["converged"]
+                                         for r in ranks):
+            fail(f"distributed {label}: iterations {its}, converged "
+                 f"{[r[label]['converged'] for r in ranks]}")
+    grid_c4 = "x".join(map(str, DIST_C4_DIMS))
+    c4d = [r["c4"] for r in ranks]
+    n_c4 = int(np.prod(DIST_C4_DIMS))
+    rmap4 = Map.uniform(n_c4, DIST_RANKS)
+    xd = torch.from_numpy(rmap4.from_padded(np.concatenate(
+        [r["x"] for r in c4d]))).to("cuda")
+    c4_rel, _ = rel_err(xd, c4x[:n_c4])
+    c4d_true = host_residual(c4csr, xd, c4b)
+    for s_, r in enumerate(c4d):
+        idle = (1.0 - r["busy_ms"] / r["warm_ms"]) if r["warm_ms"] else None
+        log(f"config 4 distributed rank {s_}: {r['rows']} rows x "
+            f"{r['diags']} diags (DIA interior), {r['mode']} exchange of "
+            f"{r['halo_rows']} halo rows an apply; set-up "
+            f"{r['setup_s']:.2f} s; first solve {r['ms']:.1f} ms, "
+            f"{r['ms'] / r['iters']:.4f} ms/iter; staged through the host "
+            f"{r['staged']} bytes; warm solve {r['warm_ms']:.1f} ms "
+            f"({r['warm_ms'] / r['iters']:.4f} ms/iter), device time "
+            f"{r['busy_ms']:.1f} ms, idle share "
+            + (f"{idle:.3f}" if idle is not None else "not measured")
+            + f"; launches {r['launches']}")
+    log(f"config 4 distributed ({grid_c4} f64, {DIST_RANKS} ranks, "
+        f"pipelined CG + dist_jacobi, rtol 1e-8): iters {c4d[0]['iters']} "
+        f"(single card {c4iters}, within {DIST_SERIAL_ITERS_TOL}); gathered "
+        f"x vs the single-card solution max|Δx|/max|x| = {c4_rel:.3e} (tol "
+        f"{DIST_C4_X_TOL:.0e}); true relative residual {c4d_true:.3e} (gate "
+        f"{DIST_C4_TRUE_MAX:.0e})")
+    if abs(c4d[0]["iters"] - c4iters) > DIST_SERIAL_ITERS_TOL \
+            or not c4_rel <= DIST_C4_X_TOL \
+            or not c4d_true <= DIST_C4_TRUE_MAX:
+        fail("config 4 distributed: iterations, solution or residual")
+    if any(not r["launches"].get("dia_spmv") for r in c4d):
+        fail(f"config 4 distributed: a rank never launched dia_kernel: "
+             f"{[r['launches'] for r in c4d]}")
+    log(f"config 4 on one rank over nccl: backend {one['backend']}, iters "
+        f"{one['iters']} (4 ranks: {c4d[0]['iters']}), dia_spmv launches "
+        f"{one['launches']}, staged {one['staged']} bytes")
+    if one["backend"] != "nccl" or not one["converged"] \
+            or abs(one["iters"] - c4d[0]["iters"]) > DIST_SERIAL_ITERS_TOL \
+            or abs(one["iters"] - c4iters) > DIST_SERIAL_ITERS_TOL \
+            or not one["launches"] or one["staged"]:
+        fail(f"config 4 on one nccl rank: {one}")
+    # the k = 4 distributed SpMV and transpose against the serial product
+    xk_host = np.zeros((c4a.n_rows_pad, DIST_MV_K))
+    xk_host[:n_c4] = np.random.default_rng(11).standard_normal(
+        (n_c4, DIST_MV_K))
+    y_serial = dia_spmm(c4a, torch.from_numpy(xk_host).to("cuda"))[:n_c4]
+    for key, label in (("y", "dist_spmv"), ("yt", "dist_spmv_t")):
+        got = torch.from_numpy(rmap4.from_padded(np.concatenate(
+            [r["mv"][key] for r in ranks]))).to("cuda")
+        check(f"{label} k={DIST_MV_K} (gathered) vs the serial DIA SpMM "
+              "(Laplace3D is symmetric)", got, y_serial, DIST_MV_TOL)
+    grid_s = "x".join(map(str, DIST_SMALL_DIMS))
+    for label, cpu_key, what in (
+            ("c4_small", "config4", "config 4 (pipelined CG + jacobi)"),
+            ("cheb_fused", "cheb_fused", "CG + dist_cheb_fused"),
+            ("amg_host", "amg", "CG + dist_amg (host set-up)"),
+            ("amg_blocks", "amg_blocks",
+             "CG + dist_amg_blocks (distributed set-up)")):
+        r = ranks[0][label]
+        extra = (f", set-up {r['setup_s']:.2f} s, {r['levels']} levels"
+                 if "setup_s" in r else "")
+        log(f"distributed {what} on {grid_s} f64: iters {r['iters']} (JAX "
+            f"package, CPU f64, {DIST_RANKS} shards: "
+            f"{DIST_CPU_ITERS[cpu_key]}), first solve {r['ms']:.1f} ms"
+            f"{extra}; launches per rank "
+            f"{[q[label]['launches'] for q in ranks]}")
+        if r["iters"] != DIST_CPU_ITERS[cpu_key]:
+            fail(f"distributed {what}: {r['iters']} iterations, the JAX "
+                 f"package's {DIST_CPU_ITERS[cpu_key]}")
+    if any(not q["cheb_fused"]["launches"].get("stencil_poly")
+           for q in ranks):
+        fail("dist_cheb_fused: a rank never launched poly_kernel")
+    amg_d = [r["amg"] for r in ranks]
+    grid_a = "x".join(map(str, DIST_AMG_DIMS))
+    log(f"structured AMG-PCG distributed ({grid_a} f32, {DIST_RANKS} "
+        f"ranks, z-slabs {amg_d[0]['slab']}): iters {amg_d[0]['iters']} "
+        f"(single card: {iters}); set-up {amg_d[0]['setup_s']:.2f} s; "
+        f"first solve {amg_d[0]['ms']:.1f} ms; {amg_d[0]['mode']} exchange "
+        f"of {amg_d[0]['halo_rows']} halo rows; staged "
+        f"{[r['staged'] for r in amg_d]} bytes; launches per rank "
+        f"{[r['launches'] for r in amg_d]}")
+    if amg_d[0]["iters"] != iters:
+        fail(f"distributed AMG-PCG: {amg_d[0]['iters']} iterations, the "
+             f"single card's {iters}")
+    if any(not (r["launches"].get("stencil_spmv")
+                and r["launches"].get("dia_spmv")) for r in amg_d):
+        fail("distributed AMG-PCG: a rank never launched stencil_kernel "
+             "and dia_kernel")
+    dist_rows = []
+    for key, name, source, replaces, also, label, launch_key in (
+            ("c4", "dia_spmv", "dia_spmv.cu", "dia_spmv.py:273",
+             "dia_spmv.py:524", "c4", "dia_spmv"),
+            ("amg", "stencil_spmv", "stencil_spmv.cu", "stencil_op.py:475",
+             "stencil_op.py:702", "amg", "stencil_spmv"),
+            ("poly", "stencil_poly", "stencil_poly.cu",
+             "stencil_poly.py:336", None, "cheb_fused", "stencil_poly")):
+        t = ranks[0]["timing"][key]
+        per_rank = [r[label]["launches"].get(launch_key, 0) for r in ranks]
+        errs = [v for k, v in ranks[0]["err"].items()
+                if k.startswith(label.split("_")[0])]
+        dist_rows.append(dict(
+            t, name=name, source=source, replaces=replaces,
+            also_replaces=also, launches=sum(per_rank),
+            launches_per_rank=per_rank,
+            per_step=per_rank[0] / max(ranks[0][label]["iters"], 1),
+            err=max(errs) if errs else 0.0))
+
     # -- 8. timings at the main paths' shapes --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     n0, n1, nd = fine.n_rows_pad, a1.n_rows_pad, len(a1.offsets)
@@ -3100,6 +3483,26 @@ def main():
         if r["name"] == "chol_inv_small":
             entry_.update(empty_ms=empty_ms, empty_host_path_ms=empty_host_ms,
                           k32_ms=chol32_ms, k32_host_path_ms=chol32_host_ms)
+        log(json.dumps(entry_))
+        kernels.append(entry_)
+    for r in dist_rows:
+        # measured in rank 0 of section 7x (graph replays there too)
+        by_bytes = r["bytes"] / HBM_BYTES_PER_MS
+        by_ops = r["flops"] / (F64_FLOPS_PER_MS if "f64" in r["shape"]
+                               else F32_FLOPS_PER_MS)
+        entry_ = dict(
+            name=r["name"], route="cuda",
+            source=f"trilinos_tpu_torch/csrc/{r['source']}",
+            replaces="trilinos_tpu/ops/pallas/" + r["replaces"],
+            also_replaces=("trilinos_tpu/ops/pallas/" + r["also_replaces"]
+                           if r["also_replaces"] else None),
+            shape=r["shape"], launches=r["launches"],
+            launches_per_rank=r["launches_per_rank"],
+            launches_per_step=r["per_step"], max_abs_err=r["err"],
+            ms=r["ms"], kernel_ms=r["ms"], host_path_ms=r["host_path_ms"],
+            plain_ms=r["plain_ms"], bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            library_ms=r["library_ms"])
         log(json.dumps(entry_))
         kernels.append(entry_)
     bf16_ms = time_ms(lambda: dia_spmv(a1_bf16, x1))

@@ -1,0 +1,84 @@
+"""The JAX package's counts for the distributed phases of ``chip_smoke.py``
+that are held to them, on the CPU in float64 over a 4-device virtual mesh.
+
+    JAX_PLATFORMS=cpu python3 scripts/dist_cpu_counts.py
+
+On ``chip_smoke.DIST_SMALL_DIMS`` (Galeri Laplace3D) with
+``chip_smoke.DIST_RANKS`` shards, each through the JAX package's
+``dist_solve``:
+
+* config 4 row-partitioned: ``distribute(…, fmt="auto")``, pipelined CG
+  with ``dist_jacobi``, rtol 1e-8, the seed-3 right-hand side (the port's
+  ``dist_pipelined_cg_entry``);
+* CG with the fused Chebyshev smoother ``dist_cheb_fused`` (degree 4,
+  λmax ``DIST_CHEB_LMAX``) on the z-slab ``DistStencil``;
+* CG with ``dist_amg`` (host set-up) and with ``dist_amg_blocks``
+  (distributed set-up) on the stored matrix;
+
+the last three at ``DIST_RTOL`` on seed-1 normals. Prints one line a case
+and a JSON line of the iteration counts at the end; ``chip_smoke.py``
+holds its rank runs to these (``DIST_CPU_ITERS``). About a minute on a
+few cores.
+"""
+import json
+import os
+import pathlib
+import sys
+import time
+
+os.environ.setdefault("XLA_FLAGS",
+                      "--xla_force_host_platform_device_count=8")
+import numpy as np  # noqa: E402
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+from chip_smoke import (DIST_CHEB_LMAX, DIST_RANKS,  # noqa: E402
+                        DIST_RTOL, DIST_SMALL_DIMS)
+from trilinos_tpu.galeri import laplace3d  # noqa: E402
+from trilinos_tpu.parallel import dist_setup  # noqa: E402
+from trilinos_tpu.parallel import distmatrix as D  # noqa: E402
+from trilinos_tpu.parallel import driver as drv  # noqa: E402
+from trilinos_tpu.solvers import cg, cg_pipeline  # noqa: E402
+
+
+def main():
+    p, dims = DIST_RANKS, DIST_SMALL_DIMS
+    mesh = drv.make_mesh(p)
+    a = laplace3d(*dims)
+    n = a.shape[0]
+    counts = {}
+
+    def run(label, solver, dm, b, **kw):
+        t0 = time.perf_counter()
+        res = drv.dist_solve(solver, dm, jnp.asarray(dm.row_map.to_padded(b)),
+                             mesh=mesh, **kw)
+        counts[label] = int(res.iters)
+        print(f"{label}: {counts[label]} iterations, converged "
+              f"{bool(res.converged)}, resnorm {float(res.resnorm):.3e} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    dm = D.distribute(a, p, fmt="auto")
+    b3 = np.random.default_rng(3).standard_normal(n)
+    run("config4", cg_pipeline, dm, b3,
+        prec=drv.dist_jacobi(a, dm.row_map), rtol=1e-8)
+    b1 = np.random.default_rng(1).standard_normal(n)
+    op = laplace3d(*dims, dtype=np.float64, fmt="stencil")
+    run("cheb_fused", cg, D.distribute_stencil(op, p), b1,
+        prec=drv.dist_cheb_fused(op, p, degree=4, lmax=DIST_CHEB_LMAX),
+        rtol=DIST_RTOL, maxiter=500)
+    run("amg", cg, dm, b1, prec=drv.dist_amg(a, dm.row_map),
+        rtol=DIST_RTOL)
+    run("amg_blocks", cg, dm, b1,
+        prec=drv.dist_amg_blocks(dist_setup.split_rows(a, dm.row_map),
+                                 dm.row_map), rtol=DIST_RTOL)
+    print(json.dumps(counts))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,8 +7,12 @@ BDIA, config 2 and config 4 grids cut as below, the uncoupled AMG's 128³ →
 16³, config 3's 128² → 32² with the CPU's 29 block steps, maxwell2d 128² →
 24², other 128³ cases → 24³, the direct solvers' laplace2d 256² → 32² and
 64² → 16², Komplex 128² → 24² with the CPU's count there, the dense solve
-4096² → 256², the eigensolvers' 64³ grid → 12³) on the CPU: every kernel
-wrapper takes its launch path, and each launch computes the plain version
+4096² → 256², the eigensolvers' 64³ grid → 12³, the distributed phases'
+256³ and 128³ grids → 32³ and 24³, their one-rank nccl group over gloo;
+the distributed grid held to the JAX package's counts stays 64³) on the
+CPU: the rank processes fork from the rehearsal (so they keep its
+patches) and run on the CPU over gloo; every kernel wrapper takes its
+launch path, and each launch computes the plain version
 instead (so the launch counters move and every gate,
 count and log line of the script runs); CUDA events time the host, CUDA
 graphs become plain calls, the profiler records the CPU only, and
@@ -46,6 +50,7 @@ smalldense = importlib.import_module("trilinos_tpu_torch.ops.smalldense")
 stencil_poly = importlib.import_module("trilinos_tpu_torch.ops.stencil_poly")
 cg_fused = importlib.import_module("trilinos_tpu_torch.ops.cg_fused")
 sstep_mod = importlib.import_module("trilinos_tpu_torch.solvers.sstep_gmres")
+pdrv = importlib.import_module("trilinos_tpu_torch.parallel.driver")
 for m in (stencil_op, dia_mod, bdia_mod, smalldense, stencil_poly, cg_fused,
           sstep_mod):
     m.use_kernel = lambda *a, **k: True
@@ -86,6 +91,10 @@ stencil_poly._launch = lambda op, stages, x, zb, all_outputs, plan: (
     else stencil_poly.stencil_poly_plain)(op, stages, x, zb)
 bdia_mod._launch = fake_bdia
 _build.build = lambda: {}
+# the rank processes fork from this one, so they inherit every patch here
+# (a spawned rank would import the unpatched package)
+_launch = pdrv.launch
+pdrv.launch = lambda *a, **k: _launch(*a, start_method="fork", **k)
 
 
 class HostEvent:
@@ -142,6 +151,7 @@ reps = [("DIMS = (256, 256, 256)", "DIMS = (32, 32, 32)"),
         ("EIG_SMALL_DIMS = (64, 64, 64)", "EIG_SMALL_DIMS = (12, 12, 12)"),
         ("(128, 128, 128)", "(24, 24, 24)"),
         ('"cuda"', '"cpu"'),
+        ('"nccl"', '"gloo"'),
         (",\n            torch.profiler.ProfilerActivity.CUDA]", "]")]
 for a, b in reps:
     assert a in src, a

@@ -36,6 +36,8 @@ from trilinos_tpu.solvers import cg as j_cg
 import trilinos_tpu_torch
 from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
                                       bsr_gmres_entry, cheb_entry,
+                                      dist_amg_entry,
+                                      dist_pipelined_cg_entry,
                                       eigen_entry, elasticity_entry, entry,
                                       fused_cg_entry, gmres_entry,
                                       komplex_entry, mm_block_gmres_entry,
@@ -46,6 +48,7 @@ from trilinos_tpu_torch.ops import (bdia_spmm, bdia_spmv, cg_fused_iteration,
                                     dia_spmv, spgemm, spmv,
                                     stencil_poly_apply, stencil_powers_apply,
                                     stencil_spmv)
+from trilinos_tpu_torch.parallel import SerialComm
 from trilinos_tpu_torch.precond import BlockStructuredAmg, SaAmg
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -351,6 +354,8 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "trilinos_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    # the distributed tests' rank processes start in this module
+    files.append(ROOT / "tests" / "torch_dist_tasks.py")
     assert len(files) > 20
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"trilinos_tpu_torch/ops/smalldense.py",
@@ -407,7 +412,13 @@ def test_port_imports_no_jax():
             "trilinos_tpu_torch/precond/block_2x2.py",
             "trilinos_tpu_torch/ops/komplex.py",
             "trilinos_tpu_torch/ops/filters.py",
-            "trilinos_tpu_torch/parallel/partition.py"} <= names
+            "trilinos_tpu_torch/parallel/partition.py",
+            "trilinos_tpu_torch/parallel/map.py",
+            "trilinos_tpu_torch/parallel/comm.py",
+            "trilinos_tpu_torch/parallel/distmatrix.py",
+            "trilinos_tpu_torch/parallel/dist_setup.py",
+            "trilinos_tpu_torch/parallel/driver.py",
+            "tests/torch_dist_tasks.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -422,7 +433,9 @@ def test_default_device_needs_a_card():
     for fn in (block_entry, cheb_entry, sstep_entry, fused_cg_entry,
                elasticity_entry, bdia_cg_entry, gmres_entry,
                bsr_gmres_entry, mm_block_gmres_entry, uncoupled_amg_entry,
-               komplex_entry, lambda: eigen_entry("LOBPCG")):
+               komplex_entry, lambda: eigen_entry("LOBPCG"),
+               lambda: dist_pipelined_cg_entry(comm=SerialComm()),
+               lambda: dist_amg_entry(comm=SerialComm())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
     from trilinos_tpu_torch.galeri import laplace3d

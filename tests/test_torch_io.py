@@ -202,9 +202,33 @@ def test_dense_round_trip_both_packages():
 def test_bad_header_and_distributed_read_raise(tmp_path):
     with pytest.raises(ValueError):
         tio.read_sparse(io.StringIO("garbage\n1 1 1\n"))
-    path = write_text(tmp_path / "p.mtx", *COORD_FILES["pattern"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    path = tmp_path / "bad.mtx"
+    path.write_text("garbage\n1 1 1\n")
+    with pytest.raises(ValueError):
         tio.read_sparse_distributed(path, 2)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_read_sparse_distributed_matches_jax(tmp_path, n_shards):
+    """Every rank's host arrays of the distributed read (plan, boundary,
+    interior) are the JAX package's shard arrays."""
+    path = tmp_path / "r.mtx"
+    jio.write_sparse(str(path), j_recirc2d(9, 7))
+    got = tio.read_sparse_distributed(str(path), n_shards)
+    want = jio.read_sparse_distributed(str(path), n_shards)
+    assert got.plan.mode == want.plan.mode
+    for part, fields in ((got.plan, ("send_idx", "send_valid", "recv_sel",
+                                     "ghost_valid")),
+                         (got.boundary, ("rows_idx", "cols", "vals"))):
+        jpart = want.plan if part is got.plan else want.boundary
+        for f in fields:
+            np.testing.assert_array_equal(getattr(part, f),
+                                          np.asarray(getattr(jpart, f)))
+    data = np.asarray(want.interior.data)
+    for s in range(n_shards):
+        assert got.interior[s].offsets == want.interior.offsets
+        np.testing.assert_array_equal(got.interior[s].data.numpy(),
+                                      data[s].reshape(data.shape[1], -1))
 
 
 def write_hb(path, a, mxtype):

@@ -284,3 +284,110 @@ def gmres_poly_from_numpy(a: CsrHost, h, y, degree: int, params=None,
     m.set_state(np.asarray(h, np.float64), np.asarray(y, np.float64),
                 int(degree))
     return m
+
+
+def _shard(m, s: int):
+    """A plain view of shard s of a JAX package's stacked stored matrix
+    whose arrays are numpy: every array field's row s, the rest as is."""
+    import types
+
+    fields = {k: (v[s] if isinstance(v, np.ndarray) else v)
+              for k, v in vars(m).items()}
+    return types.SimpleNamespace(**fields)
+
+
+def dist_local_from_jax(obj, s: int, device=None):
+    """Rank s's counterpart in the port of one of the JAX package's
+    distributed objects whose array leaves are numpy (for example after
+    ``jax.tree_util.tree_map(np.asarray, obj)``; shard s of every stacked
+    leaf is taken):
+
+    * a ``DistMatrix`` → ``parallel.distmatrix.LocalMatrix``;
+    * a ``DistStencil`` → ``parallel.distmatrix.LocalStencil``;
+    * a ``DistPrecond`` of kind identity, jacobi, ilu0, chebyshev, amg or
+      cheb_fused → ``parallel.driver.LocalPrecond`` (its ``make(comm, op)``
+      is the rank's apply). The structured AMG's state is a single-card
+      hierarchy object in the port, built by ``dist_amg_structured``;
+      it has no conversion.
+    """
+    from .parallel.distmatrix import (BoundaryPart, HaloPlan, LocalMatrix,
+                                      LocalStencil, _tensor)
+    from .parallel.driver import LocalPrecond
+
+    dev = resolve_device(device)
+
+    def plan(p):
+        return HaloPlan(send_idx=_tensor(p.send_idx[s], dev),
+                        send_valid=_tensor(p.send_valid[s], dev),
+                        recv_sel=_tensor(p.recv_sel[s], dev),
+                        ghost_valid=_tensor(p.ghost_valid[s], dev),
+                        n_ghost_pad=int(p.n_ghost_pad), seg=int(p.seg),
+                        mode=str(p.mode),
+                        offsets=tuple(int(o) for o in p.offsets))
+
+    def matrix(m):
+        it = stored_from_numpy(_shard(m.interior, s), dev)
+        bd = BoundaryPart(rows_idx=_tensor(m.boundary.rows_idx[s], dev),
+                          cols=_tensor(m.boundary.cols[s], dev),
+                          vals=_to_device(m.boundary.vals[s], dev))
+        return LocalMatrix(interior=it, boundary=bd, plan=plan(m.plan),
+                           row_map=_map(m.row_map), col_map=_map(m.col_map),
+                           rank=s)
+
+    def stencil(ds):
+        op = ds.op_local
+        return LocalStencil(
+            plan=plan(ds.plan), sel=_tensor(ds.sel[s], dev),
+            valid=_tensor(ds.valid[s], dev),
+            op_local=stencil_from_fields(op.dims, op.offsets, op.coeffs,
+                                         op.n_rows_pad, op.dtype),
+            row_map=_map(ds.row_map), depth=int(ds.depth), rank=s)
+
+    kind = getattr(obj, "kind", None)
+    if kind is None:
+        return stencil(obj) if hasattr(obj, "op_local") else matrix(obj)
+    arr = obj.arrays
+    if kind == "identity":
+        return LocalPrecond({}, {}, kind)
+    if kind in ("jacobi", "chebyshev"):
+        return LocalPrecond({"dinv": _to_device(arr["dinv"][s], dev)}, {},
+                            kind, tuple(obj.consts))
+    if kind == "ilu0":
+        return LocalPrecond({k: _tensor(arr[k][s], dev) if "cols" in k
+                             else _to_device(arr[k][s], dev)
+                             for k in ("l_cols", "l_vals", "u_cols",
+                                       "u_vals", "udinv")}, {}, kind,
+                            tuple(obj.consts))
+    if kind == "amg":
+        levels = [{"a": matrix(lv["a"]), "p": matrix(lv["p"]),
+                   "r": matrix(lv["r"]),
+                   "dinv": _to_device(lv["dinv"][s], dev)}
+                  for lv in arr["levels"]]
+        return LocalPrecond(
+            {"levels": levels},
+            {"coarse_inv": _to_device(arr["coarse_inv"][s], dev),
+             "coarse_pos": _tensor(arr["coarse_pos"][s], dev)},
+            kind, tuple(obj.consts))
+    if kind == "cheb_fused":
+        stages, op, npl, off = obj.consts
+        op_t = stencil_from_fields(op.dims, op.offsets, op.coeffs,
+                                   op.n_rows_pad, op.dtype)
+        return LocalPrecond(
+            {"plan": plan(arr["plan"]), "sel": _tensor(arr["sel"][s], dev),
+             "valid": _tensor(arr["valid"][s], dev),
+             "zb": _tensor(arr["zb"][s], dev)}, {}, kind,
+            (tuple(tuple(float(c) for c in st) for st in stages), op_t,
+             int(npl), int(off)))
+    raise NotImplementedError(f"no conversion for DistPrecond kind {kind!r}")
+
+
+def _map(m):
+    """The port's Map with the fields of the JAX package's one."""
+    from .parallel.map import Map
+
+    if m is None:
+        return None
+    return Map(n_global=int(m.n_global), n_shards=int(m.n_shards),
+               n_local_pad=int(m.n_local_pad),
+               lows=None if m.lows is None else tuple(int(v)
+                                                      for v in m.lows))

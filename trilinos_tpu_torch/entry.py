@@ -124,6 +124,22 @@ pad rows, whose stencil rows map y = x and would otherwise add the
 eigenvalue 1; ``step(v0, state)`` returns the kind's result, with the
 manager as ``step.manager`` and the operator as ``step.operator``.
 
+``dist_pipelined_cg_entry()``: BASELINE config 4 row-partitioned, the
+distributed twin of ``pipelined_cg_entry``, run in each rank of a
+``torch.distributed`` group (``comm``, a ``ProcessComm`` of the default
+group when not given; ``n_ranks`` must be its size): Galeri Laplace3D
+stored, ``distribute(…, fmt="auto")`` (DIA interiors with 7 diagonals),
+the halo-overlap ``apply_local``, ``cg_pipeline`` with ``dist_jacobi``,
+rtol 1e-8, float64, on the seed-3 right-hand side; ``step(b)`` on the
+rank's padded local ``b``, with the rank's matrix as ``step.matrix`` and
+the row map as ``step.row_map``.
+
+``dist_amg_entry()``: structured-AMG-preconditioned CG on the z-slab
+``DistStencil`` of the matrix-free Laplace3D (``dist_amg_structured``),
+with ``entry()``'s defaults and seed-0 right-hand side, in each rank as
+above; ``step(b)``, with the rank's ``LocalStencil`` as ``step.operator``,
+``step.row_map`` and the ``DistPrecond`` as ``step.preconditioner``.
+
 Every entry takes ``device`` (``None`` means the CUDA card and raises
 without one); the hierarchy paths also take an already-built hierarchy as
 ``amg=`` so one hierarchy can serve several paths, and their grid, dtype
@@ -347,6 +363,67 @@ def pipelined_cg_entry(dims=(128, 128, 128), device=None):
     host = np.zeros(npad)
     host[:n] = np.random.default_rng(3).standard_normal(n)
     return step, (torch.from_numpy(host).to(dia.data.device),)
+
+
+def _rank_comm(comm, n_ranks):
+    """The rank's comm (the default group's) and its size, checked against
+    ``n_ranks``."""
+    from .parallel.comm import ProcessComm
+
+    comm = comm or ProcessComm()
+    if n_ranks is not None and n_ranks != comm.size:
+        raise ValueError(f"n_ranks={n_ranks} but the group has {comm.size} "
+                         f"ranks")
+    return comm
+
+
+def _local_rhs(rmap, seed, rank, device, dtype=torch.float64):
+    """The rank's padded chunk of seed-``seed`` normals over the global
+    rows."""
+    host = np.random.default_rng(seed).standard_normal(rmap.n_global)
+    return torch.from_numpy(rmap.local_chunk(rmap.to_padded(host),
+                                             rank).copy()).to(device, dtype)
+
+
+def dist_pipelined_cg_entry(dims=(128, 128, 128), n_ranks=None, comm=None,
+                            device=None):
+    from .parallel.distmatrix import distribute
+    from .parallel.driver import dist_jacobi, dist_solve, local_op
+
+    comm = _rank_comm(comm, n_ranks)
+    dev = resolve_device(device)
+    a = laplace3d(*dims)
+    dm = distribute(a, comm.size, fmt="auto")
+    al = dm.local(comm.index(), dev)
+    m = dist_jacobi(a, dm.row_map).make(comm, local_op(al, comm), dev)
+
+    def step(b_vec: torch.Tensor):
+        return dist_solve(cg_pipeline, al, b_vec, comm=comm, prec=m,
+                          rtol=1e-8)
+
+    step.matrix, step.row_map = al, dm.row_map
+    return step, (_local_rhs(dm.row_map, 3, comm.index(), dev),)
+
+
+def dist_amg_entry(dims=(16, 16, 16), n_ranks=None, comm=None,
+                   dtype=np.float32, device=None):
+    from .parallel.distmatrix import distribute_stencil
+    from .parallel.driver import dist_amg_structured, dist_solve, local_op
+
+    comm = _rank_comm(comm, n_ranks)
+    dev = resolve_device(device)
+    op = laplace3d(*dims, dtype=dtype, fmt="stencil")
+    pc = dist_amg_structured(op, comm.size, dtype=dtype, device=dev)
+    al = distribute_stencil(op, comm.size).local(comm.index(), dev)
+    m = pc.make(comm, local_op(al, comm), dev)
+
+    def step(b_vec: torch.Tensor):
+        return dist_solve(cg, al, b_vec, comm=comm, prec=m, rtol=1e-5,
+                          maxiter=50)
+
+    step.operator, step.row_map, step.preconditioner = al, al.row_map, pc
+    return step, (_local_rhs(al.row_map, 0, comm.index(), dev,
+                             torch_dtype(dtype)),)
 
 
 def build_entry(solver="CG", prec="CHEBYSHEV", dims=(256, 256, 256),

@@ -5,7 +5,8 @@ Tpetra's MatrixMarket reader and writer, MatrixMarket_Tpetra.hpp:165,1642):
 host code, copied. Coordinate files (real, integer, pattern, complex;
 general, symmetric, skew-symmetric, hermitian) and array (dense) files.
 ``read_sparse`` takes the port's native parser for coordinate files given
-by path. ``read_sparse_distributed`` waits for the distributed layer.
+by path. ``read_sparse_distributed`` reads a file and row-partitions it
+into a ``parallel.distmatrix.DistMatrix``.
 """
 from __future__ import annotations
 
@@ -191,8 +192,11 @@ def write_dense(path_or_file, x: np.ndarray, comment: str = "") -> None:
 
 def read_sparse_distributed(path_or_file, n_shards: int, fmt: str = "auto",
                             dtype=None):
-    """Rank-0 read and distribution of the rows (MatrixMarket_Tpetra.hpp:
-    1082-1148): needs the distributed layer, which is not ported yet."""
-    raise NotImplementedError(
-        "read_sparse_distributed needs the distributed layer, which is not "
-        "ported yet (ROADMAP.md queue 1 item 10)")
+    """Read and distribute the rows over ``n_shards`` ranks
+    (MatrixMarket_Tpetra.hpp:1082-1148): the whole file is read — by every
+    rank that calls this, each keeping its own part through
+    ``DistMatrix.local`` — and partitioned by ``distribute``."""
+    from ..parallel.distmatrix import distribute
+
+    a = read_sparse(path_or_file)
+    return distribute(a, n_shards, fmt=fmt, dtype=dtype)

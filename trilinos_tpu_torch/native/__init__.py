@@ -1,6 +1,7 @@
 """The port's native (C++) host helpers: the AMG set-up's CSR SpGEMM, the
-Matrix Market reader, the incomplete factorizations and the sparse direct
-factorizations.
+Matrix Market reader, the incomplete factorizations, the sparse direct
+factorizations and the ghost-column ordering of the distributed
+fillComplete.
 
 Copies of functions of the JAX package's native library
 (``trilinos_tpu/native/src/tt_native.cpp``), nothing else of it:
@@ -10,11 +11,12 @@ Market parser (``tt_read_mm_header``/``tt_read_mm``), ``tt_ilu0``,
 ``tt_ilut``, ``tt_iluk``, the sparse LU ``tt_splu`` and the sparse
 Cholesky ``tt_spchol`` with their solves on many right-hand sides
 (``tt_splu_solve_many``/``tt_spchol_solve_many``: each column by the
-reference's one-column solve, the columns shared among the host's cores).
-Both are compiled into one library with
+reference's one-column solve, the columns shared among the host's cores);
+``tt_ghost.cpp`` the sorted ghost columns of a rank's boundary entries and
+their slots (``tt_ghost_slots``). All three are compiled into one library with
 ``g++ -O3 -shared -fPIC`` at first use into ``trilinos_tpu_torch/_build/``
 (git-ignored), keyed by a hash of every source and the flags, so an edit of
-either rebuilds it, and loaded with ``ctypes``. Each build writes a file of
+any rebuilds it, and loaded with ``ctypes``. Each build writes a file of
 its own and renames it into place, so several processes may build at once.
 
 Without ``g++`` the library is unavailable (:func:`lib` returns None) and
@@ -38,7 +40,8 @@ from pathlib import Path
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
-_SRC = (_HERE / "tt_spgemm.cpp", _HERE / "tt_factor.cpp")
+_SRC = (_HERE / "tt_spgemm.cpp", _HERE / "tt_factor.cpp",
+        _HERE / "tt_ghost.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -138,6 +141,9 @@ def lib() -> ctypes.CDLL | None:
         lb.tt_spchol_solve_many.argtypes = [
             i64, i64, arr(np.int64), arr(np.int32), arr(np.float64),
             arr(np.float64), arr(np.float64), i64]
+        lb.tt_ghost_slots.restype = i64
+        lb.tt_ghost_slots.argtypes = [i64, arr(np.int64), arr(np.int64),
+                                      arr(np.int64)]
         _lib = lb
         return _lib
 
@@ -363,3 +369,20 @@ def spchol_solve_native(factors, b):
     n = len(l_ptr) - 1
     return _many(lambda k, rows, out: lb.tt_spchol_solve_many(
         n, k, l_ptr, l_cols, l_vals, rows, out, os.cpu_count() or 1), n, b)
+
+
+def ghost_slots_native(bc_cols: np.ndarray):
+    """Sorted unique ghost gids and each entry's slot among them for one
+    rank's boundary columns (contiguous maps: owner-major order is gid
+    order). Returns (ghost_gids, slots), or None without the library."""
+    lb = lib()
+    if lb is None:
+        return None
+    bc = np.ascontiguousarray(bc_cols, np.int64)
+    nb = len(bc)
+    if nb == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    gids = np.empty(nb, np.int64)
+    slots = np.empty(nb, np.int64)
+    ng = lb.tt_ghost_slots(nb, bc, gids, slots)
+    return gids[:ng], slots
