@@ -67,6 +67,15 @@ pencil at 256³ and AMG-Block Davidson on it at 64³, and ``eigs_near`` at
 64³, each beside the JAX package's CPU count
 (``scripts/eigen_cpu_counts.py``).
 
+Then the distributed layer, 4 rank processes on the one card over gloo
+and one rank over nccl: config 4 row-partitioned at 128³, structured
+AMG-PCG on 256³ z-slabs, fused Chebyshev and SA-AMG PCG at 64³, s-step
+GMRES at 256³ (one depth-4 exchange and one ``poly_kernel`` launch a
+block step on each rank's extended slab, held to the single card's run),
+AMG-LOBPCG at 256³ and GMRES(30) with restricted Schwarz at 128³ and 64³
+(``scripts/dist_cpu_counts.py`` gives the JAX package's 4-shard counts),
+each rank's kernels held bitwise against their plain versions on its data.
+
 Every hierarchy set-up must be served by the native SpGEMM, and every
 factorization by the native library. Each path
 is driven with the launch counts set to 0 just before it and read just
@@ -295,13 +304,14 @@ DIST_C4_DIMS = (128, 128, 128)  # BASELINE config 4 row-partitioned
 DIST_AMG_DIMS = (256, 256, 256)  # structured AMG-PCG on the z-slab stencil
 # the grid of the phases held to the JAX package's distributed counts (a
 # 4-device mesh on the CPU, f64, scripts/dist_cpu_counts.py): config 4,
-# fused Chebyshev PCG (degree 4, λmax bound DIST_CHEB_LMAX), and SA-AMG PCG
-# with the host set-up (dist_amg) and the distributed one (dist_amg_blocks)
+# fused Chebyshev PCG (degree 4, λmax bound DIST_CHEB_LMAX), SA-AMG PCG
+# with the host set-up (dist_amg) and the distributed one (dist_amg_blocks),
+# and GMRES(30) with restricted Schwarz (dist_schwarz_entry)
 DIST_SMALL_DIMS = (64, 64, 64)
 DIST_CHEB_LMAX = 2.0  # Gershgorin bound of D⁻¹A for the 7-point Laplacian
 DIST_RTOL = 1e-8
 DIST_CPU_ITERS = {"config4": 233, "cheb_fused": 63, "amg": 14,
-                  "amg_blocks": 14}
+                  "amg_blocks": 14, "schwarz": 99}
 DIST_C4_TRUE_MAX = 1e-8  # the gathered solution's true relative residual
 DIST_C4_X_TOL = 1e-6  # against the single-card config-4 solution
 # the JAX package's own distributed-vs-serial CG agreement (tests/test_dist.py
@@ -309,6 +319,13 @@ DIST_C4_X_TOL = 1e-6  # against the single-card config-4 solution
 DIST_SERIAL_ITERS_TOL = 2
 DIST_MV_TOL = 1e-12  # k = 4 distributed SpMV and its transpose vs serial
 DIST_MV_K = 4
+# the distributed layer, part 2a (section 7x): s-step GMRES over the
+# ranks' slabs against the single card's fixed work (the same 160 basis
+# vectors; the residual norm to the kernel-vs-plain tolerance), and
+# AMG-LOBPCG against the single card's e1 (LOBPCG's count may move by one
+# with the order of the reductions)
+DIST_SSTEP_RTOL = 1e-4
+DIST_EIG_ITERS_TOL = 1
 
 
 def mass27_stencil():
@@ -624,25 +641,33 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
     """Body of each rank of section 7x (one process a rank on the card):
     config 4 row-partitioned at c4_dims and small_dims, the k = 4
     distributed SpMV and its transpose, structured AMG-PCG on the z-slab
-    stencil at amg_dims, and on small_dims fused-Chebyshev PCG and SA-AMG
-    PCG with both set-ups. Each solve runs with the counts at 0 just
-    before and read just after; each kernel of a path is held against its
-    plain version on this rank's data first. Rank 0 then times the
-    kernels at the ranks' shapes while the others wait."""
-    from trilinos_tpu_torch.entry import (dist_amg_entry,
-                                          dist_pipelined_cg_entry)
+    stencil at amg_dims, on small_dims fused-Chebyshev PCG and SA-AMG PCG
+    with both set-ups, then s-step GMRES and AMG-LOBPCG at amg_dims and
+    Schwarz GMRES at c4_dims and small_dims. Each solve runs with the
+    counts at 0 just before and read just after; each kernel of a path is
+    held against its plain version on this rank's data first. Rank 0 then
+    times the kernels at the ranks' shapes while the others wait."""
+    from trilinos_tpu_torch.entry import (dist_amg_entry, dist_eigen_entry,
+                                          dist_pipelined_cg_entry,
+                                          dist_schwarz_entry,
+                                          dist_sstep_entry)
     from trilinos_tpu_torch.galeri import laplace3d
-    from trilinos_tpu_torch.ops import (dia_spmm, dia_spmv, dia_spmv_plain,
-                                        stencil_poly_apply,
-                                        stencil_poly_plain, stencil_spmv,
-                                        stencil_spmv_plain)
+    from trilinos_tpu_torch.ops import (chol_inv_small, dia_spmm, dia_spmv,
+                                        dia_spmv_plain, stencil_poly_apply,
+                                        stencil_poly_plain,
+                                        stencil_powers_apply,
+                                        stencil_powers_plain, stencil_spmm,
+                                        stencil_spmv, stencil_spmv_plain)
+    from trilinos_tpu_torch.ops.stencil_poly import monomial_stages
     from trilinos_tpu_torch.parallel import dist_setup
     from trilinos_tpu_torch.parallel import distmatrix as D
     from trilinos_tpu_torch.parallel import driver as drv
     from trilinos_tpu_torch.solvers import cg
 
     kern = {"dia_spmv": dia_spmv, "dia_spmm": dia_spmm,
-            "stencil_spmv": stencil_spmv, "stencil_poly": stencil_poly_apply}
+            "stencil_spmv": stencil_spmv, "stencil_poly": stencil_poly_apply,
+            "stencil_powers": stencil_powers_apply,
+            "stencil_spmm": stencil_spmm, "chol_inv_small": chol_inv_small}
     me, p = comm.index(), comm.size
     out = {}
 
@@ -661,9 +686,14 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
         res = step(*args, **kw)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        out[label] = dict(iters=int(res.iters), resnorm=float(res.resnorm),
-                          converged=bool(res.converged), ms=ms,
-                          launches=counts(kern), staged=comm.staged_bytes)
+        out[label] = dict(iters=int(res.iters), ms=ms,
+                          launches=counts(kern), staged=comm.staged_bytes,
+                          kernel_launches=stencil_powers_apply.kernel_launches)
+        if hasattr(res, "resnorm"):
+            out[label].update(resnorm=float(res.resnorm),
+                              converged=bool(res.converged))
+        else:  # an eigensolve
+            out[label].update(vals=res.eigenvalues, resnorms=res.resnorms)
         return res
 
     def bitwise(label, got, want):
@@ -791,7 +821,88 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
             rtol=DIST_RTOL)
         out[label].update(setup_s=setup_s,
                           levels=len(pcm.arrays["levels"]) + 1)
-    out["timing"] = dict(c4=c4_timing, amg=amg_timing, poly=poly_timing)
+    # s-step GMRES at amg_dims f32, the single card's fixed work: one
+    # depth-4 exchange and one stencil_powers_apply on this rank's extended
+    # slab a block step
+    t0 = time.perf_counter()
+    step, (b,) = dist_sstep_entry(amg_dims, n_ranks=p, comm=comm,
+                                  device=device)
+    setup_s = time.perf_counter() - t0
+    op = step.operator
+    depth = 4  # s · the z-reach of the 7-point cross
+    ss = D.distribute_stencil(op, p, depth=depth).local(me, device)
+    zb_s = tuple(int(z) for z in D.zslab_bounds(op, p, depth)[me])
+    mono4 = monomial_stages(4, 12.0)
+    ext = D.gather_extended(ss.sel, ss.valid, ss.plan, b, comm)
+    bitwise("sstep slab powers",
+            stencil_powers_apply(ss.op_local, mono4, ext, z_bounds=zb_s),
+            stencil_powers_plain(ss.op_local, mono4, ext, zb_s))
+    run("sstep", step, b)
+    out["sstep"].update(setup_s=setup_s, slab=ss.op_local.dims, zb=zb_s)
+    sstep_timing = None
+    if me == 0:
+        n_ext = ss.op_local.n_rows_pad
+        sstep_timing = kernel_timing(
+            lambda: stencil_powers_apply(ss.op_local, mono4, ext,
+                                         z_bounds=zb_s),
+            lambda: stencil_powers_plain(ss.op_local, mono4, ext, zb_s),
+            None, "extended slab " + "x".join(map(str, ss.op_local.dims))
+            + f" f32, monomial s=4, all outputs, z-bounds {zb_s} (rank 0 "
+            f"of {p})", (1 + 4) * n_ext * 4,
+            4 * (2 * ss.op_local.nnz + n_ext))
+    comm.barrier()
+    del step, b, ext, ss
+
+    # LOBPCG (nev EIG_NEV, SM) with the distributed structured AMG at
+    # amg_dims f64: the block apply on this rank's slab (stencil_mv_kernel)
+    # and the replicated coarse levels (dia_mv_kernel)
+    t0 = time.perf_counter()
+    step, _ = dist_eigen_entry(amg_dims, nev=EIG_NEV, n_ranks=p, comm=comm,
+                               device=device)
+    setup_s = time.perf_counter() - t0
+    op_e = step.operator
+    x4 = randn((op_e.row_map.n_local_pad, EIG_NEV), torch.float64,
+               seed=70 + me)
+    ext4 = D.gather_extended(op_e.sel, op_e.valid, op_e.plan, x4, comm)
+    bitwise("eigen slab stencil SpMM", stencil_spmm(op_e.op_local, ext4),
+            stencil_spmv_plain(op_e.op_local, ext4))
+    a1 = step.preconditioner.replicated["inner"][0]["a"]
+    y4 = randn((a1.n_rows_pad, EIG_NEV), torch.float64, seed=80 + me)
+    bitwise("eigen coarse DIA SpMM", dia_spmm(a1, y4),
+            dia_spmv_plain(a1, y4))
+    run("eigen", step)
+    out["eigen"].update(setup_s=setup_s, slab=op_e.op_local.dims)
+    eig_timing = None
+    if me == 0:
+        conv4 = stencil_conv(op_e.op_local, k=EIG_NEV, dtype=torch.float64)
+        n_ext = op_e.op_local.n_rows_pad
+        x4b = ext4.T.contiguous()  # the batch layout of conv3d
+        eig_timing = kernel_timing(
+            lambda: stencil_spmm(op_e.op_local, ext4),
+            lambda: stencil_spmv_plain(op_e.op_local, ext4),
+            lambda: conv4(x4b),
+            "extended slab " + "x".join(map(str, op_e.op_local.dims))
+            + f" f64, k={EIG_NEV} (LOBPCG, rank 0 of {p})",
+            2 * n_ext * EIG_NEV * 8, 2 * op_e.op_local.nnz * EIG_NEV)
+    comm.barrier()
+    del step, op_e, x4, ext4, a1, y4
+
+    # GMRES(30) with restricted Schwarz (overlap 1, ILU(0) subdomains) on
+    # config 4's matrix at c4_dims and at small_dims, f64
+    for label, dims in (("schwarz", c4_dims), ("schwarz_small", small_dims)):
+        t0 = time.perf_counter()
+        step, (b,) = dist_schwarz_entry(dims, n_ranks=p, comm=comm,
+                                        device=device)
+        setup_s = time.perf_counter() - t0
+        al = step.matrix
+        bitwise(f"{label} interior", dia_spmv(al.interior, b),
+                dia_spmv_plain(al.interior, b))
+        res = run(label, step, b)
+        out[label].update(setup_s=setup_s, x=res.x if dims == c4_dims
+                          else None)
+        del step, b, al, res
+    out["timing"] = dict(c4=c4_timing, amg=amg_timing, poly=poly_timing,
+                         sstep=sstep_timing, eigen=eig_timing)
     out["backend"] = comm.backend
     return out
 
@@ -2966,6 +3077,84 @@ def main():
                 and r["launches"].get("dia_spmv")) for r in amg_d):
         fail("distributed AMG-PCG: a rank never launched stencil_kernel "
              "and dia_kernel")
+    # s-step GMRES over the ranks' z-slabs against the single card's run
+    ssd = [r["sstep"] for r in ranks]
+    s_single = float(sres.resnorm)
+    s_rel = abs(ssd[0]["resnorm"] - s_single) / s_single
+    log(f"s-step GMRES distributed ({grid_a} f32, {DIST_RANKS} ranks, "
+        f"extended slabs {ssd[0]['slab']}, rank 0's z-bounds {ssd[0]['zb']}):"
+        f" iters {[r['iters'] for r in ssd]} (single card {sres.iters}); "
+        f"resnorm {ssd[0]['resnorm']!r} (single card {s_single!r}, rel Δ "
+        f"{s_rel:.3e}, tol {DIST_SSTEP_RTOL:.0e}); set-up "
+        f"{ssd[0]['setup_s']:.2f} s; first solve {ssd[0]['ms']:.1f} ms "
+        f"({ssd[0]['ms'] / ssd[0]['iters']:.3f} ms a basis vector); staged "
+        f"{[r['staged'] for r in ssd]} bytes; launches per rank "
+        f"{[r['launches'] for r in ssd]}; fused poly_kernel launches "
+        f"{[r['kernel_launches'] for r in ssd]} (single card "
+        f"{s_launches['stencil_powers']})")
+    if any(r["iters"] != sres.iters for r in ssd) \
+            or not s_rel <= DIST_SSTEP_RTOL:
+        fail("distributed s-step GMRES: iterations or residual norm")
+    if any(r["launches"]["stencil_powers"] != s_launches["stencil_powers"]
+           or r["kernel_launches"] != r["launches"]["stencil_powers"]
+           for r in ssd):
+        fail("distributed s-step GMRES: poly_kernel launches a rank differ "
+             "from the single card's")
+    # AMG-LOBPCG over the ranks' z-slabs against the closed form and the
+    # single card's e1
+    ed = [r["eigen"] for r in ranks]
+    e_vals = np.sort(np.asarray(ed[0]["vals"]))
+    e_rel = np.abs(e_vals - np.sort(closed_form(DIST_AMG_DIMS, EIG_NEV))) \
+        / np.sort(closed_form(DIST_AMG_DIMS, EIG_NEV))
+    e1_iters = eig_runs["e1"]["iters"]
+    log(f"AMG-LOBPCG distributed ({grid_a} f64, {DIST_RANKS} ranks, slabs "
+        f"{ed[0]['slab']}, nev {EIG_NEV}, SM): iters "
+        f"{[r['iters'] for r in ed]} (single card e1 {e1_iters}); "
+        f"eigenvalues {e_vals!r}, against the closed form max rel "
+        f"{e_rel.max():.3e} (tol {EIG_CLOSED_RTOL:.0e}); residual norms "
+        f"{np.asarray(ed[0]['resnorms'])!r}; set-up {ed[0]['setup_s']:.2f} s; "
+        f"first solve {ed[0]['ms']:.1f} ms ({ed[0]['ms'] / ed[0]['iters']:.1f}"
+        f" ms an iteration); staged {[r['staged'] for r in ed]} bytes; "
+        f"launches per rank {[r['launches'] for r in ed]}")
+    if len({r["iters"] for r in ed}) != 1 \
+            or abs(ed[0]["iters"] - e1_iters) > DIST_EIG_ITERS_TOL \
+            or not (e_rel <= EIG_CLOSED_RTOL).all():
+        fail("distributed AMG-LOBPCG: iterations or eigenvalues")
+    if any(not r["launches"].get(k) for r in ed
+           for k in ("stencil_spmm", "dia_spmm", "chol_inv_small")):
+        fail("distributed AMG-LOBPCG: a rank never launched "
+             "stencil_mv_kernel, dia_mv_kernel or chol_inv_small")
+    # GMRES(30) with restricted Schwarz on config 4's matrix
+    for label, dims in (("schwarz", DIST_C4_DIMS),
+                        ("schwarz_small", DIST_SMALL_DIMS)):
+        sd = [r[label] for r in ranks]
+        grid_l = "x".join(map(str, dims))
+        extra, bad = "", False
+        if dims == DIST_C4_DIMS:
+            xs = torch.from_numpy(rmap4.from_padded(np.concatenate(
+                [r["x"] for r in sd]))).to("cuda")
+            s_true = host_residual(c4csr, xs, c4b)
+            extra = (f"; true relative residual {s_true:.3e} (gate "
+                     f"{DIST_C4_TRUE_MAX:.0e})")
+            bad = not s_true <= DIST_C4_TRUE_MAX
+        else:
+            extra = (f" (JAX package, CPU f64, {DIST_RANKS} shards: "
+                     f"{DIST_CPU_ITERS['schwarz']})")
+            bad = sd[0]["iters"] != DIST_CPU_ITERS["schwarz"]
+        log(f"GMRES(30) + restricted Schwarz distributed ({grid_l} f64, "
+            f"{DIST_RANKS} ranks, overlap 1, ILU(0) subdomains): iters "
+            f"{[r['iters'] for r in sd]}{extra}; set-up "
+            f"{sd[0]['setup_s']:.2f} s; first solve {sd[0]['ms']:.1f} ms "
+            f"({sd[0]['ms'] / sd[0]['iters']:.3f} ms/iter); staged "
+            f"{[r['staged'] for r in sd]} bytes; launches per rank "
+            f"{[r['launches'] for r in sd]}")
+        if bad or len({r["iters"] for r in sd}) != 1 \
+                or not all(r["converged"] for r in sd):
+            fail(f"distributed Schwarz GMRES at {grid_l}: iterations, "
+                 "convergence or residual")
+        if any(not r["launches"].get("dia_spmv") for r in sd):
+            fail(f"distributed Schwarz GMRES at {grid_l}: a rank never "
+                 "launched dia_kernel")
     dist_rows = []
     for key, name, source, replaces, also, label, launch_key in (
             ("c4", "dia_spmv", "dia_spmv.cu", "dia_spmv.py:273",
@@ -2973,7 +3162,11 @@ def main():
             ("amg", "stencil_spmv", "stencil_spmv.cu", "stencil_op.py:475",
              "stencil_op.py:702", "amg", "stencil_spmv"),
             ("poly", "stencil_poly", "stencil_poly.cu",
-             "stencil_poly.py:336", None, "cheb_fused", "stencil_poly")):
+             "stencil_poly.py:336", None, "cheb_fused", "stencil_poly"),
+            ("sstep", "stencil_powers", "stencil_poly.cu",
+             "stencil_poly.py:336", None, "sstep", "stencil_powers"),
+            ("eigen", "stencil_spmm", "stencil_spmv.cu", "stencil_op.py:654",
+             None, "eigen", "stencil_spmm")):
         t = ranks[0]["timing"][key]
         per_rank = [r[label]["launches"].get(launch_key, 0) for r in ranks]
         errs = [v for k, v in ranks[0]["err"].items()

@@ -14,8 +14,11 @@ On ``chip_smoke.DIST_SMALL_DIMS`` (Galeri Laplace3D) with
   λmax ``DIST_CHEB_LMAX``) on the z-slab ``DistStencil``;
 * CG with ``dist_amg`` (host set-up) and with ``dist_amg_blocks``
   (distributed set-up) on the stored matrix;
+* GMRES(30) with restricted Schwarz ``dist_schwarz`` (overlap 1, ILU(0)
+  subdomains, combine ZERO) on config 4's matrix, rtol 1e-8, maxiter
+  1000, the seed-3 right-hand side (the port's ``dist_schwarz_entry``);
 
-the last three at ``DIST_RTOL`` on seed-1 normals. Prints one line a case
+the cheb_fused and the two AMG cases at ``DIST_RTOL`` on seed-1 normals. Prints one line a case
 and a JSON line of the iteration counts at the end; ``chip_smoke.py``
 holds its rank runs to these (``DIST_CPU_ITERS``). About a minute on a
 few cores.
@@ -44,7 +47,7 @@ from trilinos_tpu.galeri import laplace3d  # noqa: E402
 from trilinos_tpu.parallel import dist_setup  # noqa: E402
 from trilinos_tpu.parallel import distmatrix as D  # noqa: E402
 from trilinos_tpu.parallel import driver as drv  # noqa: E402
-from trilinos_tpu.solvers import cg, cg_pipeline  # noqa: E402
+from trilinos_tpu.solvers import cg, cg_pipeline, gmres  # noqa: E402
 
 
 def main():
@@ -77,6 +80,9 @@ def main():
     run("amg_blocks", cg, dm, b1,
         prec=drv.dist_amg_blocks(dist_setup.split_rows(a, dm.row_map),
                                  dm.row_map), rtol=DIST_RTOL)
+    run("schwarz", gmres, dm, b3,
+        prec=drv.dist_schwarz(a, dm.row_map, overlap=1, combine="ZERO"),
+        restart=30, rtol=1e-8, maxiter=1000)
     print(json.dumps(counts))
 
 

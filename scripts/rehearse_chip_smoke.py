@@ -9,8 +9,9 @@ BDIA, config 2 and config 4 grids cut as below, the uncoupled AMG's 128³ →
 64² → 16², Komplex 128² → 24² with the CPU's count there, the dense solve
 4096² → 256², the eigensolvers' 64³ grid → 12³, the distributed phases'
 256³ and 128³ grids → 32³ and 24³, their one-rank nccl group over gloo;
-the distributed grid held to the JAX package's counts stays 64³) on the
-CPU: the rank processes fork from the rehearsal (so they keep its
+the distributed grid held to the JAX package's counts stays 64³; the
+distributed s-step run's residual gate is widened to float32's floor at
+32³) on the CPU: the rank processes fork from the rehearsal (so they keep its
 patches) and run on the CPU over gloo; every kernel wrapper takes its
 launch path, and each launch computes the plain version
 instead (so the launch counters move and every gate,
@@ -149,6 +150,9 @@ reps = [("DIMS = (256, 256, 256)", "DIMS = (32, 32, 32)"),
         ("KOMPLEX_CPU_ITERS = 15", "KOMPLEX_CPU_ITERS = 14"),
         ("DENSE_N = 4096", "DENSE_N = 256"),
         ("EIG_SMALL_DIMS = (64, 64, 64)", "EIG_SMALL_DIMS = (12, 12, 12)"),
+        # at 32³ the s-step runs end at float32's rounding floor, where
+        # the distributed and single-card residual norms part by ≈ 1e-2
+        ("DIST_SSTEP_RTOL = 1e-4", "DIST_SSTEP_RTOL = 5e-2"),
         ("(128, 128, 128)", "(24, 24, 24)"),
         ('"cuda"', '"cpu"'),
         ('"nccl"', '"gloo"'),

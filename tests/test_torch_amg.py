@@ -23,6 +23,7 @@ from trilinos_tpu_torch.ops import DiaMatrix, StencilOp
 from trilinos_tpu_torch.precond import SaAmg
 from trilinos_tpu_torch.precond.amg import (_structured_transfers,
                                             block_pair_dup, block_pair_sum)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 GRIDS = {"3d": ((16, 16, 16), j_laplace3d, laplace3d),
          "2d": ((32, 32), j_laplace2d, laplace2d)}

@@ -27,6 +27,7 @@ from trilinos_tpu_torch.convert import bdia_from_numpy
 from trilinos_tpu_torch.ops import (CsrHost, bdia_plane_solver_op, bdia_spmm,
                                     bdia_spmv, csr_to_bdia, pack_planes,
                                     spmv, unpack_planes)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 tB = importlib.import_module("trilinos_tpu_torch.ops.bdia_spmv")
 

@@ -25,6 +25,7 @@ from trilinos_tpu_torch.precond import (BlockedOperator2x2,
                                         diag_schur_approx, lsc_inv_schur,
                                         simple_schur_2x2)
 from trilinos_tpu_torch.solvers import gmres
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 N0, N1 = 48, 32
 

@@ -30,6 +30,7 @@ from trilinos_tpu_torch.precond.amg import (smooth_prolongator,
 from trilinos_tpu_torch.precond.block_amg import (_gershgorin_dinv_a,
                                                   _structured_node_agg)
 from trilinos_tpu_torch.solvers import cg
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def rel(got, want):

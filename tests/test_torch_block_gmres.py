@@ -32,16 +32,9 @@ from trilinos_tpu_torch.ops import (chol_inv_small, dia_spmm, dia_spmv, spmv,
                                     stencil_spmm, stencil_spmv)
 from trilinos_tpu_torch.precond import SaAmg
 from trilinos_tpu_torch.solvers import block_gmres
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 SETTINGS = dict(num_blocks=25, max_restarts=10)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def rel(got, want):

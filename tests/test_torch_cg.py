@@ -19,6 +19,7 @@ from trilinos_tpu.solvers import cg as j_cg
 from trilinos_tpu_torch.galeri import laplace2d
 from trilinos_tpu_torch.ops import csr_to_dia, spmv
 from trilinos_tpu_torch.solvers import cg
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def rel(got, want):

@@ -27,6 +27,7 @@ from trilinos_tpu_torch.galeri import laplace2d, laplace3d
 from trilinos_tpu_torch.ops import (cg_fused_applicable, cg_fused_iteration,
                                     cg_fused_iteration_plain, spmv)
 from trilinos_tpu_torch.solvers import cg_fused, cg_single_reduce
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def rel(got, want):

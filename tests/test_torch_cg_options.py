@@ -40,6 +40,7 @@ from trilinos_tpu_torch.ops import matvec as TS
 from trilinos_tpu_torch.solvers import (LinearProblem, SolverManager, cg,
                                         cg_pipeline, stochastic_cg)
 from trilinos_tpu_torch.solvers import status as tstatus
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 X_TOL = 1e-10
 CONDEST_TOL = 1e-10

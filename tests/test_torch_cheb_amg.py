@@ -23,6 +23,7 @@ from trilinos_tpu_torch.entry import cheb_entry
 from trilinos_tpu_torch.galeri import laplace3d
 from trilinos_tpu_torch.ops import stencil_poly as tp
 from trilinos_tpu_torch.precond import SaAmg
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def rel(got, want):

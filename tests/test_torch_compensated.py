@@ -20,6 +20,7 @@ from trilinos_tpu.ops import compensated as JC
 
 from trilinos_tpu_torch.ops import compensated as C
 from trilinos_tpu_torch.parallel.comm import SerialComm
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def f32(x):

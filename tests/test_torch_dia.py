@@ -25,6 +25,7 @@ from trilinos_tpu_torch.convert import dia_from_numpy
 from trilinos_tpu_torch.galeri import laplace3d as t_laplace3d
 from trilinos_tpu_torch.ops import csr_to_dia, dia_spmm, dia_spmv, spmv
 from trilinos_tpu_torch.precond import structured as tS
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def rel(got, want):

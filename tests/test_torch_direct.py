@@ -36,6 +36,7 @@ from trilinos_tpu_torch.solvers import (NotSpdError, SparseCholesky, SparseLu,
                                         dense_solve, direct_solve,
                                         dist_dense_solve)
 from trilinos_tpu_torch.solvers import direct as tdirect
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 MATRICES = {"laplace2d": j_laplace2d(15, 13),

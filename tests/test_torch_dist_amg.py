@@ -7,8 +7,10 @@ two distributed entries at small sizes — ``dist_pipelined_cg_entry`` on
 float64 (CG with ``amg_structured``).
 
 One gloo group of 4 ranks (rank bodies in ``torch_dist_tasks``) runs
-every case once a run; the JAX side (``torch_dist_reference``) runs the
-same problems on a 4-device mesh. Parity: equal iterations on every rank
+every case once a run, with the eigensolver, Schwarz and entry cases of
+``test_torch_dist_eigen``, ``test_torch_dist_schwarz`` and
+``test_torch_dist_sstep``; the JAX side (``torch_dist_reference``) runs
+the same problems on a 4-device mesh. Parity: equal iterations on every rank
 and x within 1e-8 relative to its largest entry; the entries' right-hand
 sides are the JAX twins' bit for bit.
 """
@@ -17,6 +19,7 @@ import pytest
 
 import torch_dist_reference as R
 import torch_dist_tasks as T
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CASES = ("cg_amg", "cg_amg_blocks", "cg_cheb_fused", "entry/pipelined_cg",
          "entry/amg")
@@ -24,10 +27,9 @@ CASES = ("cg_amg", "cg_amg_blocks", "cg_cheb_fused", "entry/pipelined_cg",
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    root = tmp_path_factory.getbasetemp()
-    return T.shared("torch_dist_amg",
-                    lambda: (R.port_results(root, CASES),
-                             R.jax_results(CASES)), tmp_path_factory)
+    return (R.amg_port(tmp_path_factory),
+            T.shared("torch_dist_amg_jax", lambda: R.jax_results(CASES),
+                     tmp_path_factory))
 
 
 @pytest.mark.parametrize("case", CASES)

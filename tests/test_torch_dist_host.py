@@ -32,6 +32,7 @@ from trilinos_tpu_torch.parallel import map as tmap
 from trilinos_tpu_torch.parallel import partition as tpart
 
 import torch_dist_tasks as T
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 SETUP_RTOL = 1e-14
 PLAN_FIELDS = ("send_idx", "send_valid", "recv_sel", "ghost_valid")

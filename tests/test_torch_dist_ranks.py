@@ -3,11 +3,13 @@ package's distributed applies on its virtual CPU mesh, in float64.
 
 One gloo group of 4 ranks and one of 8 (spawned through
 ``parallel.driver.launch``, rank bodies in ``torch_dist_tasks``) compute
-every case at once; each case below reads the stored results. The JAX
-side runs the same matrices and vectors through its ``distribute`` and
-``read_sparse_distributed`` and, in one ``shard_map`` program over a mesh
-of the same size, through the per-shard applies of its ``dist_spmv`` and
-``dist_spmv_t``, ``exchange`` and ``export_combine``.
+every case at once, once a run (``torch_dist_reference.ranks_port``, which
+``test_torch_dist_schwarz`` and ``test_torch_dist_eigen`` read too); each
+case below reads the stored results. The JAX side runs the same matrices
+and vectors through its ``distribute`` and ``read_sparse_distributed``
+and, in one ``shard_map`` program over a mesh of the same size, through
+the per-shard applies of its ``dist_spmv`` and ``dist_spmv_t``,
+``exchange`` and ``export_combine`` (``torch_dist_reference.ranks_jax``).
 
 Tolerance: 1e-12 relative to the largest entry (the boundary rows' sums
 may add in another order); the halo plans' exchange mode must be the
@@ -21,111 +23,19 @@ import time
 import numpy as np
 import pytest
 
-import jax
-import jax.numpy as jnp
-from jax.sharding import PartitionSpec as PS
-
-from trilinos_tpu.io import matrix_market as jmm
-from trilinos_tpu.ops import formats as F
-from trilinos_tpu.parallel import distmatrix as JD
-from trilinos_tpu.parallel import driver as jdrv
-from trilinos_tpu_torch.io import write_sparse
 from trilinos_tpu_torch.parallel import driver as drv
 
+import torch_dist_reference as R
 import torch_dist_tasks as T
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
-RANKS = (4, 8)
-TIMEOUT = 300.0
-
-
-def jcsr(a):
-    """The JAX package's CsrHost with the port matrix's arrays."""
-    return F.CsrHost(a.row_ptr, a.cols, a.vals, a.shape)
-
-
-def gather(ranks, key):
-    return np.concatenate([r[key] for r in ranks])
-
-
-def _jax_side(p, mtx):
-    """Every reference of one group size from ONE shard_map program of the
-    JAX package (its per-shard applies, exchange and combine), so its mesh
-    compiles once."""
-    mesh = jdrv.make_mesh(p)
-    probs = T.spmv_problems()
-    mats = {name: JD.distribute(jcsr(a), p) for name, a in probs.items()}
-    lap = JD.distribute(jcsr(probs["laplace2d"]), p)
-    jdr = jmm.read_sparse_distributed(str(mtx), p)
-    vecs = {}
-    for name, a in probs.items():
-        n = a.shape[0]
-        for label, x in (("1d", T.vectors(n, 5)),
-                         ("k4", T.vectors(n, 6, T.K))):
-            vecs[f"{name}/{label}"] = jnp.asarray(
-                mats[name].row_map.to_padded(x))
-    vecs["combine"] = jnp.asarray(lap.row_map.to_padded(
-        T.vectors(probs["laplace2d"].shape[0], 7)))
-    vecs["read"] = jnp.asarray(jdr.row_map.to_padded(
-        T.vectors(jdr.row_map.n_global, 8)))
-    ms = dict(mats, combine=lap, read=jdr)
-    spec = {k: (PS(jdrv.AXIS) if v.ndim == 1 else PS(jdrv.AXIS, None))
-            for k, v in vecs.items()}
-
-    def body(m_sh, v_sh):
-        m = {k: JD.unstack_local(v) for k, v in m_sh.items()}
-        out = {}
-        for name in probs:
-            for label in ("1d", "k4"):
-                v = v_sh[f"{name}/{label}"]
-                out[f"{name}/spmv/{label}"] = jdrv._local_op(m[name], p)(v)
-                out[f"{name}/spmv_t/{label}"] = jdrv._local_op_t(
-                    m[name], p)(v)
-        x = v_sh["combine"]
-        ghosts = JD.exchange(x, m["combine"].plan, jdrv.AXIS, p)
-        for mode, scale in T.COMBINE_SCALES.items():
-            out[f"combine/{mode}"] = JD.export_combine(
-                x, ghosts * scale, m["combine"].plan, jdrv.AXIS, p,
-                mode=mode)
-        out["read/spmv"] = jdrv._local_op(m["read"], p)(v_sh["read"])
-        return out
-
-    out_spec = {**{f"{name}/{op}/{label}": spec[f"{name}/{label}"]
-                   for name in probs for op in ("spmv", "spmv_t")
-                   for label in ("1d", "k4")},
-                **{f"combine/{mode}": spec["combine"]
-                   for mode in T.COMBINE_SCALES},
-                "read/spmv": spec["read"]}
-    run = jax.jit(jax.shard_map(
-        body, mesh=mesh,
-        in_specs=({k: PS(jdrv.AXIS) for k in ms}, spec),
-        out_specs=out_spec))
-    want = {k: np.asarray(v) for k, v in run(ms, vecs).items()}
-    for name, jdm in mats.items():
-        want[f"{name}/mode"] = jdm.plan.mode
-    want["read/mode"] = jdr.plan.mode
-    return want
-
-
-def _compute(root):
-    mtx = root / "dist_read.mtx"
-    write_sparse(mtx, T.nonsym_csr(4, 80))
-    port, ref = {}, {}
-    for p in RANKS:
-        ranks = drv.launch(T.ranks_spmv, p, str(mtx), device="cpu",
-                           rendezvous_dir=root, timeout=TIMEOUT)
-        ref[p] = _jax_side(p, mtx)
-        got = {k: (ranks[0][k] if k.endswith("mode")
-                   else gather(ranks, k)) for k in ref[p]}
-        got["staged"] = [r["staged"] for r in ranks]
-        port[p] = got
-    return port, ref
+RANKS = R.RANKS
 
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    return T.shared("torch_dist_ranks", lambda: _compute(
-        tmp_path_factory.getbasetemp()), tmp_path_factory)
+    return R.ranks_port(tmp_path_factory), R.ranks_jax(tmp_path_factory)
 
 
 def _close(got, want):

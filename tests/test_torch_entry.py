@@ -36,8 +36,9 @@ from trilinos_tpu.solvers import cg as j_cg
 import trilinos_tpu_torch
 from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
                                       bsr_gmres_entry, cheb_entry,
-                                      dist_amg_entry,
+                                      dist_amg_entry, dist_eigen_entry,
                                       dist_pipelined_cg_entry,
+                                      dist_schwarz_entry, dist_sstep_entry,
                                       eigen_entry, elasticity_entry, entry,
                                       fused_cg_entry, gmres_entry,
                                       komplex_entry, mm_block_gmres_entry,
@@ -50,16 +51,9 @@ from trilinos_tpu_torch.ops import (bdia_spmm, bdia_spmv, cg_fused_iteration,
                                     stencil_spmv)
 from trilinos_tpu_torch.parallel import SerialComm
 from trilinos_tpu_torch.precond import BlockStructuredAmg, SaAmg
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -423,6 +417,27 @@ def test_port_imports_no_jax():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "trilinos_tpu"), (f, mod)
+
+
+def test_port_test_modules_hold_one_thread():
+    """Every port test module imports the autouse ``one_thread`` fixture
+    as a module-level statement (one in a docstring never runs)."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) > 40
+    for f in files:
+        tree = ast.parse(f.read_text(), filename=str(f))
+        assert any(isinstance(node, ast.ImportFrom)
+                   and node.module == "torch_threads"
+                   and [a.name for a in node.names] == ["one_thread"]
+                   for node in tree.body), f
+
+
+def test_dist_entries_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for fn in (dist_sstep_entry, dist_eigen_entry, dist_schwarz_entry):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(comm=SerialComm())
 
 
 def test_default_device_needs_a_card():

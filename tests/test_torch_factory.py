@@ -43,6 +43,7 @@ from trilinos_tpu_torch.ops import dia_spmv, stencil_spmm, stencil_spmv
 from trilinos_tpu_torch.solvers import (LinearProblem, SolverManager, build,
                                         create_solver, factory,
                                         solver_names)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 X_TOL = 1e-10
 A = j_laplace2d(14, 14)

@@ -15,6 +15,7 @@ from trilinos_tpu_torch.galeri import (elasticity2d, elasticity3d,
                                        helmholtz2d, rigid_body_modes,
                                        uniflow2d)
 from trilinos_tpu_torch.ops.fe import fe_assemble
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def same_csr(t, j):

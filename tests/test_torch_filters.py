@@ -32,6 +32,7 @@ from trilinos_tpu.ops.matrix_ops import rap as j_rap
 from trilinos_tpu_torch import precond as tprec
 from trilinos_tpu_torch.ops import blas, choose_format, filters, rap, spmv
 from trilinos_tpu_torch.ops import formats as TF
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def port_csr(a):

@@ -24,6 +24,7 @@ from trilinos_tpu_torch.convert import bsr_from_numpy, ell_from_numpy
 from trilinos_tpu_torch.galeri import stencils as tst
 from trilinos_tpu_torch.ops import formats as TF
 from trilinos_tpu_torch.ops import matvec as TS
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 FWD_TOL, T_TOL = 1e-13, 1e-12
 

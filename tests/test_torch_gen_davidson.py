@@ -29,20 +29,11 @@ from trilinos_tpu.ops import matvec as JS
 from trilinos_tpu_torch.eigen import EigsResult, generalized_davidson
 from trilinos_tpu_torch.ops import formats as TF
 from trilinos_tpu_torch.ops import matvec as TS
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 EIG_RTOL = 1e-10
 RES_ATOL = 1e-8
 VEC_TOL = 1e-8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs a process a core, and these
-    small tensors gain nothing from more."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def ell_pair(a):

@@ -36,6 +36,7 @@ from trilinos_tpu_torch.convert import ilu_from_numpy
 from trilinos_tpu_torch.ops import formats as TF
 from trilinos_tpu_torch.precond import ilu as tilu
 from trilinos_tpu_torch.precond import ilut as tilut
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 MATRICES = {"recirc2d": j_recirc2d(10, 10, diff=1e-2),

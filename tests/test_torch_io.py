@@ -31,6 +31,7 @@ from trilinos_tpu.ops import formats as JF
 from trilinos_tpu_torch import io as tio
 from trilinos_tpu_torch.io import matrix_market as tmm
 from trilinos_tpu_torch.ops import formats as TF
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def port_csr(a):

@@ -24,6 +24,7 @@ from trilinos_tpu_torch import precond as tprec
 from trilinos_tpu_torch.convert import relaxation_from_numpy
 from trilinos_tpu_torch.ops import DiaMatrix, dia_spmv
 from trilinos_tpu_torch.ops import formats as TF
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-13
 

@@ -25,6 +25,7 @@ from trilinos_tpu_torch.io import matrix_market as tmm
 from trilinos_tpu_torch.ops import DiaMatrix, choose_format, dia_spmv
 from trilinos_tpu_torch.ops import formats as TF
 from trilinos_tpu_torch.ops import komplex as tk
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def port_csr(a):

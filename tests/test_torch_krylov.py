@@ -37,6 +37,7 @@ from trilinos_tpu_torch.ops import matvec as TS
 from trilinos_tpu_torch.solvers import (bicgstab, block_cg, fixed_point,
                                         lsqr, minres, tfqmr)
 from trilinos_tpu_torch.solvers.block_cg import _ls_solve
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 X_TOL = 1e-10
 

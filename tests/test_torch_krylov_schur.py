@@ -41,20 +41,12 @@ from trilinos_tpu_torch.eigen.krylov_schur import (_ordschur, _ritz_vectors,
                                                    _select_expansion_columns)
 from trilinos_tpu_torch.ops import formats as TF
 from trilinos_tpu_torch.ops import matvec as TS
+from trilinos_tpu_torch.parallel.comm import SerialComm
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 EIG_RTOL = 1e-10
 RES_ATOL = 1e-8
 VEC_TOL = 1e-8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs a process a core, and these
-    small tensors gain nothing from more."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def ell_pair(a):
@@ -230,6 +222,6 @@ def test_device_ritz_vectors_match_host_product(complex_z):
         z = z + 1j * rng.standard_normal((12, 4))
     want = v @ z
     want = want / np.linalg.norm(want, axis=0, keepdims=True)
-    got = _ritz_vectors(torch.from_numpy(v), z).numpy()
+    got = _ritz_vectors(SerialComm(), torch.from_numpy(v), z).numpy()
     assert np.iscomplexobj(got) == complex_z
     assert np.abs(got - want).max() <= 1e-12

@@ -25,6 +25,7 @@ from trilinos_tpu_torch.precond.amg import (smooth_prolongator,
                                             tentative_prolongator_nullspace)
 from trilinos_tpu_torch.precond.block_amg import (_gershgorin_dinv_a,
                                                   _structured_node_agg)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def random_pair(rng, m, k, n, density):

@@ -19,6 +19,7 @@ from trilinos_tpu.solvers import ortho as jo
 
 from trilinos_tpu_torch.parallel.comm import SerialComm
 from trilinos_tpu_torch.solvers import ortho as to
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 JC, TC = JComm(), SerialComm()
 N = 240

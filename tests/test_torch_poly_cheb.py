@@ -34,6 +34,7 @@ from trilinos_tpu_torch.ops import spmv as t_spmv
 from trilinos_tpu_torch.precond.poly import (gmres_poly_apply,
                                              gmres_poly_op,
                                              gmres_poly_setup)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 MATRICES = {"laplace2d": j_laplace2d(14, 14),

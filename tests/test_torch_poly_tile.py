@@ -26,6 +26,7 @@ import torch
 from trilinos_tpu_torch.ops import stencil_poly as tp
 from trilinos_tpu_torch.ops.stencil_op import StencilOp
 from trilinos_tpu_torch.solvers.sstep_gmres import newton_basis_stages
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CSRC = pathlib.Path(tp.__file__).resolve().parent.parent / "csrc"
 

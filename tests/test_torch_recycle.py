@@ -44,6 +44,7 @@ from trilinos_tpu_torch.solvers import (LinearProblem, SolverManager,
                                         block_gcrodr, gcrodr, pcpg, rcg)
 from trilinos_tpu_torch.solvers.block_gcrodr import _block_harmonic_coeffs
 from trilinos_tpu_torch.solvers.gcrodr import _harmonic_ritz_coeffs
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 X_TOL = 1e-10
 

@@ -30,6 +30,7 @@ from trilinos_tpu_torch.convert import schwarz_from_numpy
 from trilinos_tpu_torch.ops import choose_format, spmv
 from trilinos_tpu_torch.ops import formats as TF
 from trilinos_tpu_torch.solvers import cg, gmres
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 MATRICES = {"laplace2d": j_laplace2d(16, 12),

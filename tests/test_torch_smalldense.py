@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from trilinos_tpu.ops import smalldense as jsd
 
 from trilinos_tpu_torch.ops import smalldense as tsd
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def rel(got, want):

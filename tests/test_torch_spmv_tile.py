@@ -39,6 +39,7 @@ from trilinos_tpu_torch.ops import stencil_op as so
 from trilinos_tpu_torch.ops.stencil_op import (SpmvPlan, StencilOp,
                                                spmv_plan, stencil_spmv,
                                                stencil_spmv_plain)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CSRC = pathlib.Path(so.__file__).resolve().parent.parent / "csrc"
 LAP3 = cross3d_stencil(6.0, -1.0, -1.0, -1.0, -1.0, -1.0, -1.0)

@@ -35,6 +35,7 @@ from trilinos_tpu_torch.ops import StencilOp, spmv, stencil_powers_apply
 from trilinos_tpu_torch.solvers.sstep_gmres import (
     estimate_opnorm, leja_order, newton_basis_stages, ritz_shifts,
     sstep_gmres as tss)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # (1, 0) and (-1, 0) of opposite signs: the x factor has complex eigenvalues
 NONSYM = [((0, 0), 4.0), ((1, 0), -1.0), ((-1, 0), 0.6), ((0, 1), -1.0),

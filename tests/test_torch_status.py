@@ -26,6 +26,7 @@ from trilinos_tpu_torch.solvers import cg as t_cg
 from trilinos_tpu_torch.solvers import gmres as t_gmres
 from trilinos_tpu_torch.solvers import status as tstatus
 from trilinos_tpu_torch.solvers.linear_problem import LinearProblem
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 A = laplace2d(16, 16)
 JA = JF.csr_to_ell(A)

@@ -21,6 +21,7 @@ from trilinos_tpu.ops.pallas import stencil_op as jso
 from trilinos_tpu_torch.galeri import stencils as tst
 from trilinos_tpu_torch.ops import StencilOp, spmv, stencil_spmm, stencil_spmv
 from trilinos_tpu_torch.ops.stencil_op import stencil_spmv_plain
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 LAP3 = [((0, 0, 0), 6.0), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
         ((0, -1, 0), -1.0), ((0, 1, 0), -1.0), ((0, 0, -1), -1.0),

@@ -26,6 +26,7 @@ from trilinos_tpu.solvers.sstep_gmres import (
 from trilinos_tpu_torch.galeri import laplace3d
 from trilinos_tpu_torch.ops import StencilOp, stencil_poly as tp
 from trilinos_tpu_torch.precond import fused_stencil_chebyshev
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ST7 = [((0, 0, 0), 6.0), ((1, 0, 0), -1.0), ((-1, 0, 0), -1.0),
        ((0, 1, 0), -1.0), ((0, -1, 0), -1.0), ((0, 0, 1), -1.0),

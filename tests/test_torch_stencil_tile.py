@@ -34,6 +34,7 @@ from trilinos_tpu_torch.ops.cg_fused import (cg_fused_applicable,
                                              cg_fused_iteration_plain,
                                              cg_fused_plan)
 from trilinos_tpu_torch.ops.stencil_op import StencilOp, spmm_plan, stencil_spmm
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # the package attribute of this name is the function, not the module
 dia = importlib.import_module("trilinos_tpu_torch.ops.dia_spmv")

@@ -31,6 +31,7 @@ from trilinos_tpu_torch.convert import two_level_schwarz_from_numpy
 from trilinos_tpu_torch.ops import DiaMatrix, dia_spmv, spmv
 from trilinos_tpu_torch.ops import formats as TF
 from trilinos_tpu_torch.solvers import cg
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 NX = 24

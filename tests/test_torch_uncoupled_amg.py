@@ -38,6 +38,7 @@ from trilinos_tpu_torch.convert import uncoupled_amg_state_from_jax
 from trilinos_tpu_torch.galeri import laplace3d
 from trilinos_tpu_torch.ops import formats as TF
 from trilinos_tpu_torch.precond import amg as tamg
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 MATRICES = {"laplace2d": j_laplace2d(32, 32),

@@ -22,14 +22,22 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from trilinos_tpu_torch.entry import dist_amg_entry, dist_pipelined_cg_entry
+from trilinos_tpu_torch import eigen as E
+from trilinos_tpu_torch.entry import (dist_amg_entry, dist_eigen_entry,
+                                      dist_pipelined_cg_entry,
+                                      dist_schwarz_entry, dist_sstep_entry,
+                                      eigen_entry, sstep_entry)
 from trilinos_tpu_torch.galeri import laplace2d, laplace3d, recirc2d
 from trilinos_tpu_torch.io import read_sparse_distributed
 from trilinos_tpu_torch.ops.formats import CsrHost
+from trilinos_tpu_torch.ops.matvec import spmv
 from trilinos_tpu_torch.parallel import dist_setup
 from trilinos_tpu_torch.parallel import distmatrix as D
 from trilinos_tpu_torch.parallel import driver as drv
+from trilinos_tpu_torch.parallel.map import Map
+from trilinos_tpu_torch.precond import SaAmg
 from trilinos_tpu_torch.solvers import cg, gmres
+from trilinos_tpu_torch.solvers.sstep_gmres import estimate_opnorm
 
 K = 4  # multivector width of the SpMV cases
 COMBINE_SCALES = {"ADD": 1.0, "INSERT": 3.0, "REPLACE": 3.0,
@@ -112,6 +120,9 @@ def ranks_spmv(comm, device, mtx_path=None):
     for mode, scale in COMBINE_SCALES.items():
         out[f"combine/{mode}"] = D.export_combine(xl, ghosts * scale,
                                                   al.plan, comm, mode)
+    out.update(schwarz_applies(comm, device))
+    # LOBPCG over the group (the JAX package runs it at 4 and 8 shards)
+    out["eigen/lobpcg"] = _eigen("lobpcg", comm, device)
     if mtx_path is not None:
         dmr = read_sparse_distributed(mtx_path, p)
         alr = dmr.local(me, device)
@@ -217,8 +228,11 @@ def _solve_case(name, comm, device):
 
 
 def ranks_solve(comm, device, cases):
-    """Every rank's result of each named solve case."""
-    return {name: _solve_case(name, comm, device) for name in cases}
+    """Every rank's result of each named case: the solve cases above and
+    the Schwarz, s-step, eigensolver and entry cases below."""
+    return {name: (RANK_CASES[name](comm, device) if name in RANK_CASES
+                   else _solve_case(name, comm, device))
+            for name in cases}
 
 
 def ranks_fail_one(comm, device):
@@ -227,3 +241,197 @@ def ranks_fail_one(comm, device):
         raise ValueError("rank body failed on purpose")
     comm.psum(torch.ones(1))
     return "unreachable"
+
+
+# -- Schwarz, s-step GMRES, eigensolves and their entries --------------------
+
+SCHWARZ_MODES = ("ZERO", "ADD")
+# the JAX package's twin (tests/test_dist_precond.py TestDistSchwarz)
+SCHWARZ_DIMS = (10, 10, 8)
+# dist_sstep_gmres on the JAX package's twin grids and settings
+# (tests/test_dist_stencil.py TestDistSstepGmres, tests/test_krylov.py
+# test_dist_sstep_bf16); Newton shifts with one conjugate pair (a
+# quadratic stage, γ ≠ 0), Leja-ordered
+SSTEP_DIMS = (16, 16, 16)
+SSTEP_KW = dict(s=3, t_blocks=5, max_restarts=25, rtol=1e-5)
+SSTEP_NEWTON_SHIFTS = (11.0, 5.0 + 3.0j, 5.0 - 3.0j)
+SSTEP_NEWTON_KW = dict(s=3, t_blocks=5, max_restarts=40, rtol=1e-8)
+SSTEP_BF16_DIMS = (16, 8, 32)
+SSTEP_BF16_KW = dict(s=2, t_blocks=4, max_restarts=100, rtol=1e-4)
+# the eigensolver twins (tests/test_dist_eigen.py): name → (grid of
+# laplace2d, nev, solver, keywords); "davidson" takes dist_jacobi
+EIGEN_CASES = {
+    "lobpcg": ((12, 10), 4, "lobpcg", dict(which="SM", tol=1e-9,
+                                            maxiter=300)),
+    "lobpcg_v0": ((10, 10), 3, "lobpcg", dict(which="SM", tol=1e-9,
+                                               maxiter=200)),
+    "bks": ((12, 10), 4, "block_krylov_schur",
+            dict(which="LM", symmetric=True, tol=1e-9)),
+    "tracemin": ((10, 8), 3, "tracemin", dict(tol=1e-8, maxiter=200)),
+    "davidson": ((12, 8), 3, "block_davidson",
+                 dict(which="SA", tol=1e-8, maxiter=150)),
+    "rtr": ((10, 8), 3, "rtr", dict(tol=1e-8, maxiter=150)),
+    # 12 rows a rank, fewer than the basis limit of 18: the limit must be
+    # read from the global row count
+    "generalized_davidson": ((8, 6), 3, "generalized_davidson",
+                             dict(which="LM", tol=1e-8, maxiter=300)),
+}
+GLOBAL_OP_GRID = (16, 8)
+ENTRY_SMALL = {"sstep": (16, 16, 16), "eigen": (16, 16, 16),
+               "schwarz": SCHWARZ_DIMS}
+
+
+def lobpcg_v0(n):
+    return np.random.default_rng(3).standard_normal((n, 3))
+
+
+def schwarz_applies(comm, device):
+    """The Schwarz applies (ZERO and ADD, 1-D and k = 4) on this rank's
+    rows."""
+    me, p = comm.index(), comm.size
+    a = laplace3d(*SCHWARZ_DIMS)
+    dm = D.distribute(a, p)
+    n = a.shape[0]
+    out = {}
+    for mode in SCHWARZ_MODES:
+        m = drv.global_precond(drv.dist_schwarz(a, dm.row_map, overlap=1,
+                                                combine=mode), dm, comm,
+                               device)
+        for label, x in (("1d", vectors(n, 9)), ("k4", vectors(n, 10, K))):
+            out[f"schwarz/{mode}/{label}"] = m(_local(dm.row_map, x, me,
+                                                      device))
+    return out
+
+
+def _eigen(name, comm, device):
+    grid, nev, solver, kw = EIGEN_CASES[name]
+    a = laplace2d(*grid)
+    dm = D.distribute(a, comm.size)
+    kw = dict(kw)
+    if name == "davidson":
+        kw["prec"] = drv.dist_jacobi(a, dm.row_map)
+    v0 = lobpcg_v0(a.shape[0]) if name == "lobpcg_v0" else None
+    res = drv.dist_eigsolve(getattr(E, solver), dm, nev, comm=comm, v0=v0,
+                            device=device, **kw)
+    # LOBPCG's result has no converged field: it stops converged or at
+    # maxiter, which its iteration count shows
+    return dict(vals=res.eigenvalues, iters=int(res.iters),
+                converged=bool(getattr(res, "converged", True)),
+                vecs=res.eigenvectors,
+                resnorms=np.asarray(getattr(res, "resnorms", ())))
+
+
+def _sstep(comm, device, dims, dtype, kw, b_seed, **extra):
+    op = laplace3d(*dims, dtype=dtype, fmt="stencil")
+    rmap = Map.uniform(op.n_rows, comm.size)
+    b = _local(rmap, vectors(op.n_rows, b_seed), comm.index(), device).to(
+        torch.float32 if dtype == np.float32 else torch.float64)
+    res = drv.dist_sstep_gmres(op, b, comm=comm, **kw, **extra)
+    return dict(x=res.x, iters=int(res.iters), resnorm=float(res.resnorm),
+                converged=bool(res.converged))
+
+
+def _sstep_fused(comm, device):
+    out = _sstep(comm, device, SSTEP_DIMS, np.float32, SSTEP_KW, 42)
+    # the same solve with σ given as the single-card estimator's value on
+    # the global operator: rank 0's broadcast estimate is that value
+    op = laplace3d(*SSTEP_DIMS, dtype=np.float32, fmt="stencil")
+    sig = estimate_opnorm(lambda v: spmv(op, v), op.n_rows_pad,
+                          torch.float32, device=device)
+    given = _sstep(comm, device, SSTEP_DIMS, np.float32, SSTEP_KW, 42,
+                   sigma=sig)
+    out.update(sigma=sig, given_iters=given["iters"],
+               given_resnorm=given["resnorm"])
+    return out
+
+
+def _entry(name, comm, device):
+    """This rank's result of a distributed entry at its small grid, its
+    right-hand side, and (rank 0) the single-card twin's result."""
+    me, p = comm.index(), comm.size
+    dims = ENTRY_SMALL[name]
+    single = None
+    if name == "sstep":
+        step, (b,) = dist_sstep_entry(dims, n_ranks=p, comm=comm,
+                                      device=device)
+        res = step(b)
+        if me == 0:
+            st, (bs,) = sstep_entry(dims, device=device)
+            single = st(bs)
+    elif name == "eigen":
+        step, _ = dist_eigen_entry(dims, nev=4, n_ranks=p, comm=comm,
+                                   device=device)
+        res = step()
+        b = None
+        if me == 0:
+            amg = SaAmg(laplace3d(*dims, dtype=np.float64, fmt="stencil"),
+                        {"dtype": np.float64}, device=device).compute()
+            st, args = eigen_entry("LOBPCG", {"Which": "SR",
+                                              "Convergence Tolerance": 1e-8},
+                                   nev=4, amg=amg)
+            single = st(*args)
+    else:
+        step, (b,) = dist_schwarz_entry(dims, n_ranks=p, comm=comm,
+                                        device=device)
+        res = step(b)
+    if name == "eigen":
+        out = dict(vals=np.asarray(res.eigenvalues), iters=int(res.iters),
+                   x=res.eigenvectors, converged=True)
+    else:
+        out = dict(x=res.x, iters=int(res.iters),
+                   resnorm=float(res.resnorm),
+                   converged=bool(res.converged), b=b)
+    if single is not None:
+        out["single"] = dict(iters=int(single.iters),
+                             x=single.eigenvectors if name == "eigen"
+                             else single.x,
+                             vals=(np.asarray(single.eigenvalues)
+                                   if name == "eigen" else None),
+                             resnorm=(None if name == "eigen"
+                                      else float(single.resnorm)))
+    return out
+
+
+def _global_op(comm, device):
+    me, p = comm.index(), comm.size
+    a = laplace2d(*GLOBAL_OP_GRID)
+    dm = D.distribute(a, p)
+    op = drv.global_operator(dm, comm, device)
+    n = a.shape[0]
+    return {label: op(_local(dm.row_map, x, me, device))
+            for label, x in (("1d", vectors(n, 12)),
+                             ("k4", vectors(n, 13, K)))}
+
+
+def _mass_refused(comm, device):
+    """dist_eigsolve binds no mass matrix to lanczos_eigs's basis length:
+    the message of the ValueError it raises."""
+    dm = D.distribute(laplace2d(*GLOBAL_OP_GRID), comm.size)
+    try:
+        drv.dist_eigsolve(E.lanczos_eigs, dm, 2, comm=comm, device=device,
+                          mass_matrix=dm, dtype=np.float64)
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+RANK_CASES = {
+    "sstep/fused": _sstep_fused,
+    "sstep/loop": lambda comm, device: _sstep(
+        comm, device, SSTEP_DIMS, np.float32, SSTEP_KW, 42, basis="loop"),
+    "sstep/newton": lambda comm, device: _sstep(
+        comm, device, SSTEP_DIMS, np.float64, SSTEP_NEWTON_KW, 42,
+        shifts=SSTEP_NEWTON_SHIFTS),
+    "sstep/bf16": lambda comm, device: _sstep(
+        comm, device, SSTEP_BF16_DIMS, np.float32, SSTEP_BF16_KW, 3,
+        basis_dtype=torch.bfloat16),
+    **{f"eigen/{name}": (lambda comm, device, name=name:
+                         _eigen(name, comm, device))
+       for name in EIGEN_CASES if name != "lobpcg"},
+    "eigen/global_op": _global_op,
+    "eigen/mass_refused": _mass_refused,
+    # GMRES with restricted Schwarz: the entry on the twin's grid
+    "schwarz/gmres": lambda comm, device: _entry("schwarz", comm, device),
+    "entry/sstep": lambda comm, device: _entry("sstep", comm, device),
+    "entry/eigen": lambda comm, device: _entry("eigen", comm, device),
+}

@@ -304,8 +304,8 @@ def dist_local_from_jax(obj, s: int, device=None):
 
     * a ``DistMatrix`` → ``parallel.distmatrix.LocalMatrix``;
     * a ``DistStencil`` → ``parallel.distmatrix.LocalStencil``;
-    * a ``DistPrecond`` of kind identity, jacobi, ilu0, chebyshev, amg or
-      cheb_fused → ``parallel.driver.LocalPrecond`` (its ``make(comm, op)``
+    * a ``DistPrecond`` of kind identity, jacobi, ilu0, schwarz,
+      chebyshev, amg or cheb_fused → ``parallel.driver.LocalPrecond`` (its ``make(comm, op)``
       is the rank's apply). The structured AMG's state is a single-card
       hierarchy object in the port, built by ``dist_amg_structured``;
       it has no conversion.
@@ -352,12 +352,15 @@ def dist_local_from_jax(obj, s: int, device=None):
     if kind in ("jacobi", "chebyshev"):
         return LocalPrecond({"dinv": _to_device(arr["dinv"][s], dev)}, {},
                             kind, tuple(obj.consts))
-    if kind == "ilu0":
-        return LocalPrecond({k: _tensor(arr[k][s], dev) if "cols" in k
-                             else _to_device(arr[k][s], dev)
-                             for k in ("l_cols", "l_vals", "u_cols",
-                                       "u_vals", "udinv")}, {}, kind,
-                            tuple(obj.consts))
+    if kind in ("ilu0", "schwarz"):
+        local = {k: _tensor(arr[k][s], dev) if "cols" in k
+                 else _to_device(arr[k][s], dev)
+                 for k in ("l_cols", "l_vals", "u_cols", "u_vals", "udinv")}
+        consts = (int(obj.consts[0]),)  # sweeps
+        if kind == "schwarz":
+            local["plan"] = plan(arr["plan"])
+            consts += (str(obj.consts[1]), int(obj.consts[2]))
+        return LocalPrecond(local, {}, kind, consts)
     if kind == "amg":
         levels = [{"a": matrix(lv["a"]), "p": matrix(lv["p"]),
                    "r": matrix(lv["r"]),

@@ -24,8 +24,8 @@ from ..parallel.comm import Comm, SerialComm
 from ..solvers.base import Operator
 from ..solvers.ortho import cgs2_project, cholqr2
 from .krylov_schur import (EigsResult, _contiguous, _expansion_quality,
-                           _filter_rescale_block, _host, _mcholqr2,
-                           _mortho_block, _start_block)
+                           _filter_rescale_block, _global_rows, _host,
+                           _mcholqr2, _mortho_block, _start_block)
 
 
 def _schur_select(h: np.ndarray, nsel: int, which: str):
@@ -72,7 +72,8 @@ def generalized_davidson(op: Operator, n: int, nev: int, *,
     dtype = torch_dtype(dtype)
     nb = nb or nev
     smax = smax or max(4 * nev, 6 * nb)
-    smax = min(smax, (n // nb) * nb)
+    n_all = _global_rows(comm, n, v0.device if v0 is not None else device)
+    smax = min(smax, (n_all // nb) * nb)
     op = _contiguous(op)
     prec = _contiguous(prec) or (lambda r: r)
     mass = _contiguous(m)

@@ -56,6 +56,16 @@ def _contiguous(fn):
     return lambda v: fn(v.contiguous())
 
 
+def _global_rows(comm: Comm, n: int, device) -> int:
+    """The row count the basis limits are taken from: ``n`` on one rank;
+    over a group of ranks, each passing its local row count, their sum,
+    the global size that the JAX package's drivers pass as ``n``."""
+    if comm.size == 1:
+        return n
+    return int(comm.psum(torch.tensor(n, dtype=torch.int64,
+                                      device=resolve_device(device))))
+
+
 def _start_block(rng, n, width, dtype, device):
     """``rng`` standard normals (n, width), drawn on the host as the JAX
     package draws them and placed on ``device`` (``None``: the CUDA
@@ -249,17 +259,20 @@ def _cg_m_solve(mass, comm, iters):
     return m_solve
 
 
-def _ritz_vectors(vm_: torch.Tensor, z: np.ndarray) -> torch.Tensor:
-    """V_m z on V's device in float64, columns scaled to unit norm; a
-    complex z as its real and imaginary parts (two real GEMMs)."""
+def _ritz_vectors(comm: Comm, vm_: torch.Tensor,
+                  z: np.ndarray) -> torch.Tensor:
+    """V_m z on V's device in float64, columns scaled to unit norm over
+    every rank's rows; a complex z as its real and imaginary parts (two
+    real GEMMs)."""
     v64 = vm_.to(torch.float64)
     zr = torch.as_tensor(np.ascontiguousarray(z.real), device=v64.device)
     xr = v64 @ zr
+    sq = (xr * xr).sum(dim=0, keepdim=True)
     if not np.iscomplexobj(z):
-        return xr / torch.linalg.vector_norm(xr, dim=0, keepdim=True)
+        return xr / torch.sqrt(comm.psum(sq))
     zi = torch.as_tensor(np.ascontiguousarray(z.imag), device=v64.device)
     xi = v64 @ zi
-    nrm = torch.sqrt((xr * xr + xi * xi).sum(dim=0, keepdim=True))
+    nrm = torch.sqrt(comm.psum(sq + (xi * xi).sum(dim=0, keepdim=True)))
     return torch.complex(xr / nrm, xi / nrm)
 
 
@@ -288,7 +301,8 @@ def block_krylov_schur(op: Operator, n: int, nev: int, *,
     comm = comm or SerialComm()
     dtype = torch_dtype(dtype)
     op, mass = _contiguous(op), _contiguous(mass)
-    m = m or min(max(2 * nev + 12, 20), n - nb)
+    n_all = _global_rows(comm, n, v0.device if v0 is not None else device)
+    m = m or min(max(2 * nev + 12, 20), n_all - nb)
     m = (m // nb) * nb
     keep_target = min(nev + max(nev // 2, 4), m - 2 * nb)
     keep_target = max((keep_target // nb) * nb, nb)
@@ -373,7 +387,7 @@ def block_krylov_schur(op: Operator, n: int, nev: int, *,
         w_all, z_all = np.linalg.eig(hn[:m, :m])
     order = np.argsort(-_crit(w_all, which))[:nev]
     w_small = w_all[order]
-    x = _ritz_vectors(v[:, :m], z_all[:, order])
+    x = _ritz_vectors(comm, v[:, :m], z_all[:, order])
     if symmetric:
         w_small = w_small.real
     return EigsResult(eigenvalues=w_small, eigenvectors=x,

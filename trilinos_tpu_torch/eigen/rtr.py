@@ -21,7 +21,7 @@ import torch
 
 from ..device import torch_dtype
 from ..ops import smalldense
-from ..ops.blas import mv_trans_mv
+from ..ops.blas import local_dot, mv_trans_mv
 from ..parallel.comm import Comm, SerialComm
 from ..solvers.base import Operator
 from ..solvers.ortho import cholqr2
@@ -137,7 +137,8 @@ def rtr(op: Operator, n: int, nev: int, *, block: int | None = None,
         zt = torch.as_tensor(z, device=x.device)
         wt = torch.as_tensor(w, device=x.device)
         ra = ax @ zt - (mx @ zt) * wt[None, :]
-        return w, x @ zt, _host(torch.linalg.vector_norm(ra[:, :nev], dim=0))
+        rn = ra[:, :nev]
+        return w, x @ zt, _host(torch.sqrt(comm.psum(local_dot(rn, rn))))
 
     x, mx = retract(v0, torch.zeros_like(v0))
     # initial trust radius: the actual ‖X‖_F (an M-orthonormal block has

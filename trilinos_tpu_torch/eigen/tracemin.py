@@ -17,7 +17,8 @@ from ..ops.blas import local_dot, mv_trans_mv
 from ..parallel.comm import Comm, SerialComm
 from ..solvers.base import Operator
 from ..solvers.ortho import cholqr2
-from .krylov_schur import EigsResult, _contiguous, _host, _start_block
+from .krylov_schur import (EigsResult, _contiguous, _global_rows, _host,
+                           _start_block)
 from .lobpcg import _rayleigh_ritz
 
 
@@ -35,7 +36,8 @@ def tracemin(op: Operator, n: int, nev: int, *, block: int | None = None,
     card)."""
     comm = comm or SerialComm()
     dtype = torch_dtype(dtype)
-    s = block or min(nev + 2, n)
+    s = block or min(nev + 2, _global_rows(
+        comm, n, v0.device if v0 is not None else device))
     op, mass = _contiguous(op), _contiguous(m)
 
     def mop(v):

@@ -140,6 +140,30 @@ with ``entry()``'s defaults and seed-0 right-hand side, in each rank as
 above; ``step(b)``, with the rank's ``LocalStencil`` as ``step.operator``,
 ``step.row_map`` and the ``DistPrecond`` as ``step.preconditioner``.
 
+``dist_sstep_entry()``: the distributed twin of ``sstep_entry`` in each
+rank as above: ``dist_sstep_gmres`` on the z-slab ``DistStencil`` of the
+matrix-free Laplace3D with the same fixed work (s = 4, t_blocks = 8,
+max_restarts = 4, rtol = 0, σ = 12, float32) and the same seed-0
+right-hand side; each block's basis is one depth-4 exchange and one
+``stencil_powers_apply`` on the rank's extended slab; ``step(b)``, with
+the global ``StencilOp`` as ``step.operator`` and ``step.row_map``.
+
+``dist_eigen_entry()``: the distributed twin of ``eigen_entry("LOBPCG",
+amg=...)``: LOBPCG (which SM, tol 1e-8, maxiter 200) for the ``nev``
+smallest eigenpairs of the z-slab ``DistStencil`` in float64,
+preconditioned by ``dist_amg_structured``, through ``dist_eigsolve`` from
+the seed-7 start block; ``step()``, with the rank's ``LocalStencil`` as
+``step.operator``, ``step.row_map`` and the ``DistPrecond`` as
+``step.preconditioner``.
+
+``dist_schwarz_entry()``: BASELINE config 4's stored Laplace3D,
+row-partitioned as in ``dist_pipelined_cg_entry`` (DIA interiors), solved
+by GMRES(30) at rtol 1e-8 (at most 1000 iterations) right-preconditioned
+by ``dist_schwarz`` (overlap 1, ILU(0) subdomains, restricted:
+``combine="ZERO"``), float64, on the seed-3 right-hand side;
+``step(b)``, with ``step.matrix``, ``step.row_map`` and
+``step.preconditioner``.
+
 Every entry takes ``device`` (``None`` means the CUDA card and raises
 without one); the hierarchy paths also take an already-built hierarchy as
 ``amg=`` so one hierarchy can serve several paths, and their grid, dtype
@@ -424,6 +448,67 @@ def dist_amg_entry(dims=(16, 16, 16), n_ranks=None, comm=None,
     step.operator, step.row_map, step.preconditioner = al, al.row_map, pc
     return step, (_local_rhs(al.row_map, 0, comm.index(), dev,
                              torch_dtype(dtype)),)
+
+
+def dist_sstep_entry(dims=(256, 256, 256), n_ranks=None, comm=None,
+                     dtype=np.float32, device=None):
+    from .parallel.driver import dist_sstep_gmres
+    from .parallel.map import Map
+
+    comm = _rank_comm(comm, n_ranks)
+    dev = resolve_device(device)
+    op = laplace3d(*dims, dtype=dtype, fmt="stencil")
+
+    def step(b_vec: torch.Tensor):
+        return dist_sstep_gmres(op, b_vec, comm=comm, s=4, t_blocks=8,
+                                max_restarts=4, rtol=0.0, sigma=12.0)
+
+    rmap = Map.uniform(op.n_rows, comm.size)
+    step.operator, step.row_map = op, rmap
+    return step, (_local_rhs(rmap, 0, comm.index(), dev,
+                             torch_dtype(dtype)),)
+
+
+def dist_eigen_entry(dims=(256, 256, 256), nev=4, n_ranks=None, comm=None,
+                     dtype=np.float64, device=None):
+    from .eigen import lobpcg
+    from .parallel.distmatrix import distribute_stencil
+    from .parallel.driver import dist_amg_structured, dist_eigsolve, local_op
+
+    comm = _rank_comm(comm, n_ranks)
+    dev = resolve_device(device)
+    op = laplace3d(*dims, dtype=dtype, fmt="stencil")
+    pc = dist_amg_structured(op, comm.size, dtype=dtype, device=dev)
+    al = distribute_stencil(op, comm.size).local(comm.index(), dev)
+    m = pc.make(comm, local_op(al, comm), dev)
+
+    def step():
+        return dist_eigsolve(lobpcg, al, nev, comm=comm, prec=m, which="SM",
+                             tol=1e-8, maxiter=200)
+
+    step.operator, step.row_map, step.preconditioner = al, al.row_map, pc
+    return step, ()
+
+
+def dist_schwarz_entry(dims=(128, 128, 128), n_ranks=None, comm=None,
+                       device=None):
+    from .parallel.distmatrix import distribute
+    from .parallel.driver import dist_schwarz, dist_solve, local_op
+
+    comm = _rank_comm(comm, n_ranks)
+    dev = resolve_device(device)
+    a = laplace3d(*dims)
+    dm = distribute(a, comm.size, fmt="auto")
+    al = dm.local(comm.index(), dev)
+    pc = dist_schwarz(a, dm.row_map, overlap=1, combine="ZERO")
+    m = pc.make(comm, local_op(al, comm), dev)
+
+    def step(b_vec: torch.Tensor):
+        return dist_solve(gmres, al, b_vec, comm=comm, prec=m, restart=30,
+                          rtol=1e-8, maxiter=1000)
+
+    step.matrix, step.row_map, step.preconditioner = al, dm.row_map, pc
+    return step, (_local_rhs(dm.row_map, 3, comm.index(), dev),)
 
 
 def build_entry(solver="CG", prec="CHEBYSHEV", dims=(256, 256, 256),

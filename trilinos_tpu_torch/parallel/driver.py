@@ -12,15 +12,21 @@ Trilinos runs one MPI process a rank:
   ``fn(comm, device, *args)`` in every rank and gathers what each returns.
   It joins with a timeout: a rank that hangs (a collective its peers never
   enter) or fails stops every rank, and the launcher raises;
-* :func:`dist_spmv`, :func:`dist_spmv_t`, :func:`dist_solve` and
-  :func:`dist_lsqr` run inside a rank on that rank's padded local vector,
-  with any solver of ``trilinos_tpu_torch.solvers`` and the rank's
-  :class:`~.comm.ProcessComm`; ``iters``, ``resnorm`` and ``converged`` come
-  from reductions and are the same on every rank;
+* :func:`dist_spmv`, :func:`dist_spmv_t`, :func:`dist_solve`,
+  :func:`dist_lsqr` and :func:`dist_sstep_gmres` run inside a rank on that
+  rank's padded local vector, with any solver of
+  ``trilinos_tpu_torch.solvers`` and the rank's :class:`~.comm.ProcessComm`;
+  ``iters``, ``resnorm`` and ``converged`` come from reductions and are the
+  same on every rank;
+* :func:`global_operator`, :func:`global_precond` and
+  :func:`dist_eigsolve`: the operator and preconditioner as rank-local
+  closures, and any eigensolver of ``trilinos_tpu_torch.eigen`` run in
+  every rank over them;
 * :class:`DistPrecond` keeps every rank's preconditioner state on the host
   (arrays stacked on a leading rank axis, or host DistMatrix levels) and
   ``make(comm, op, device)`` builds the rank's apply (the Ifpack2 split:
-  row-partitioned state, per-rank apply).
+  row-partitioned state, per-rank apply), Schwarz's overlapped subdomains
+  (:func:`dist_schwarz`) among the kinds.
 
 Kernels are chosen by the tensor's device, never by probing the platform:
 on the card the interior and stencil applies launch the port's kernels,
@@ -121,9 +127,10 @@ def launch(fn: Callable, n_ranks: int, *args, device=None, backend=None,
     ``fn`` must be a module-level function (the ranks import it by name)
     whose module imports only the port. ``device``: ``None`` → the CUDA
     card (rank r takes card r mod the card count; raises without one),
-    ``"cpu"`` → the CPU, where each rank runs one intra-op thread. On the
-    card the kernels and the native library are built before any rank
-    starts.
+    ``"cpu"`` → the CPU, where each rank runs one thread (torch's intra-op
+    pool, and OpenMP and BLAS through the environment the ranks start
+    with). On the card the kernels and the native library are built before
+    any rank starts.
     ``backend``: ``None`` → ``nccl`` when every rank has a card of its own,
     else ``gloo`` (NCCL refuses two ranks on one card; gloo stages CUDA
     buffers through host memory, see ``ProcessComm``). The process group
@@ -155,6 +162,10 @@ def launch(fn: Callable, n_ranks: int, *args, device=None, backend=None,
         raise ValueError("the nccl backend needs a card of its own for "
                          "every rank")
     ctx = mp.get_context(start_method)
+    # a spawned rank reads these when its libraries load: P ranks on the
+    # host's cores, one thread each
+    env = ({k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                             "MKL_NUM_THREADS")} if kind == "cpu" else {})
     with tempfile.TemporaryDirectory(dir=rendezvous_dir) as tmp:
         init_file = os.path.join(tmp, "rendezvous")
         out_q = ctx.Queue()
@@ -163,8 +174,17 @@ def launch(fn: Callable, n_ranks: int, *args, device=None, backend=None,
             args=(r, n_ranks, init_file, backend, devices[r], fn, args,
                   out_q, max(timeout, 60.0)))
             for r in range(n_ranks)]
-        for p in procs:
-            p.start()
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
         results, deadline = {}, time.monotonic() + timeout
         try:
             while len(results) < n_ranks:
@@ -323,16 +343,17 @@ def _jacobi(pc, comm, op):
     return lambda x: (dinv if x.ndim == 1 else dinv[:, None]) * x
 
 
-def _ilu0(pc, comm, op):
+def _ilu_sweeps(local: dict, sweeps: int) -> Callable:
+    """The fixed-sweep Jacobi triangular solves with a rank's ELL factors
+    L (unit lower, diagonal stored) and U (``l_cols``, ``l_vals``,
+    ``u_cols``, ``u_vals``, ``udinv``): the FastILU apply that
+    ``dist_ilu0`` and the Schwarz subdomain solves share."""
     from ..ops.matvec import spmv
-
-    (sweeps,) = pc.consts
 
     def mk(cols, vals):
         n = cols.shape[0]
         return EllMatrix(cols=cols, vals=vals, n_rows=n, n_cols=n, nnz=0)
 
-    local = pc.local
     l_m = mk(local["l_cols"], local["l_vals"])
     u_m = mk(local["u_cols"], local["u_vals"])
     udinv_v = local["udinv"]
@@ -348,6 +369,31 @@ def _ilu0(pc, comm, op):
         return x
 
     return ilu_apply
+
+
+def _ilu0(pc, comm, op):
+    (sweeps,) = pc.consts
+    return _ilu_sweeps(pc.local, sweeps)
+
+
+def _schwarz(pc, comm, op):
+    """Restricted (ZERO) or classical (ADD) additive Schwarz: widen the
+    residual to the overlapped subdomain [owned | overlap] with one
+    exchange over the overlap plan, run the subdomain's fixed-sweep ILU(0)
+    solves, then keep the owned part (ZERO) or export the overlap part
+    back to its owners and add it (ADD)."""
+    from .distmatrix import exchange, export_combine
+
+    sweeps, combine, npl = pc.consts
+    plan = pc.local["plan"]
+    solve = _ilu_sweeps(pc.local, sweeps)
+
+    def schwarz_apply(r):
+        ghosts = exchange(r, plan, comm)
+        z = solve(torch.cat([r, ghosts.to(r.dtype)]))
+        return export_combine(z[:npl], z[npl:], plan, comm, combine)
+
+    return schwarz_apply
 
 
 def _amg(pc, comm, op):
@@ -496,7 +542,8 @@ def _cheb_fused(pc, comm, op):
 
 _KINDS = {"identity": _identity, "jacobi": _jacobi, "ilu0": _ilu0,
           "amg": _amg, "amg_structured": _amg_structured,
-          "chebyshev": _chebyshev, "cheb_fused": _cheb_fused}
+          "chebyshev": _chebyshev, "cheb_fused": _cheb_fused,
+          "schwarz": _schwarz}
 
 
 def _padded_dinv(d: np.ndarray, rmap: Map, dtype) -> np.ndarray:
@@ -602,6 +649,105 @@ def dist_ilu0(a: CsrHost, rmap: Map, sweeps: int = 6, dtype=None,
         arrays["udinv"].append(dv.astype(_np_dtype(dtype)))
     return DistPrecond(arrays={k: np.stack(v) for k, v in arrays.items()},
                        kind="ilu0", consts=(int(sweeps),))
+
+
+def _overlap_rows(a: CsrHost, rmap: Map, overlap: int) -> list:
+    """Each rank's overlap rows: ``overlap`` breadth-first layers of graph
+    neighbours around its owned rows, owner-major and gid-sorted within an
+    owner (the order of a halo plan's ghosts)."""
+    n = a.shape[0]
+    rows_all = a._rows()
+    ghosts_of = []
+    for s in range(rmap.n_shards):
+        lo, hi = rmap.shard_lo(s), rmap.shard_hi(s)
+        in_sub = np.zeros(n, dtype=bool)
+        in_sub[lo:hi] = True
+        frontier = np.arange(lo, hi)
+        for _ in range(overlap):
+            if not len(frontier):
+                break
+            sel = np.zeros(n, dtype=bool)
+            sel[frontier] = True
+            new = np.unique(a.cols[sel[rows_all]].astype(np.int64))
+            new = new[~in_sub[new]]
+            in_sub[new] = True
+            frontier = new
+        ovl = np.where(in_sub)[0]
+        ovl = ovl[(ovl < lo) | (ovl >= hi)]
+        ghosts_of.append(ovl[np.lexsort((ovl, rmap.owner_of(ovl)))])
+    return ghosts_of
+
+
+def dist_schwarz(a: CsrHost, rmap: Map, *, overlap: int = 1,
+                 sweeps: int = 6, combine: str = "ZERO",
+                 dtype=None) -> DistPrecond:
+    """Distributed (restricted) additive Schwarz with ILU(0) subdomain
+    solves (Ifpack2 AdditiveSchwarz over an OverlappingRowMatrix).
+
+    Each rank's subdomain is its owned rows plus ``overlap`` layers of
+    graph neighbours; a second halo plan gathers the residual on the
+    overlap rows. The subdomain matrix (couplings outside the subdomain
+    dropped, identity rows on the padding slots so the factorization stays
+    regular) is factored by ILU(0) on the host, and L and U are packed as
+    ELL at one width for every rank. The apply runs the fixed-sweep Jacobi
+    triangular solves; ``combine`` 'ZERO' is restricted AS (the overlap
+    part is dropped), 'ADD' classical AS (``export_combine`` adds it to
+    its owners; any other CombineMode of ``export_combine`` works too)."""
+    from ..ops.formats import csr_to_ell
+    from ..precond.ilu import ilu0_factor
+    from .distmatrix import _stack, build_halo_plans
+
+    dtype = dtype or a.vals.dtype
+    n_shards, npl, n = rmap.n_shards, rmap.n_local_pad, a.shape[0]
+    rows_all = a._rows()
+    ghosts_of = _overlap_rows(a, rmap, overlap)
+    plans, _ = build_halo_plans(ghosts_of, rmap, n_shards)
+    ntot = npl + plans[0].n_ghost_pad
+
+    factors = []
+    for s in range(n_shards):
+        lo, hi = rmap.shard_lo(s), rmap.shard_hi(s)
+        ovl = ghosts_of[s]
+        # subdomain index of each global row (-1: outside the subdomain)
+        lidx = np.full(n, -1, dtype=np.int64)
+        lidx[lo:hi] = np.arange(hi - lo)
+        lidx[ovl] = npl + np.arange(len(ovl))
+        mask = lidx[rows_all] >= 0
+        rs = lidx[rows_all[mask]]
+        cs = lidx[a.cols[mask].astype(np.int64)]
+        keep = cs >= 0
+        present = np.zeros(ntot, dtype=bool)
+        present[rs[keep]] = True
+        pad_rows = np.where(~present)[0]
+        sub = CsrHost.from_coo(
+            np.concatenate([rs[keep], pad_rows]),
+            np.concatenate([cs[keep], pad_rows]),
+            np.concatenate([a.vals[mask][keep],
+                            np.ones(len(pad_rows), dtype=a.vals.dtype)]),
+            (ntot, ntot))
+        factors.append(ilu0_factor(sub))
+
+    kl = max(max(l_m.max_row_length() for l_m, _ in factors), 1)
+    ku = max(max(u_m.max_row_length() for _, u_m in factors), 1)
+    arrays = {k: [] for k in ("l_cols", "l_vals", "u_cols", "u_vals",
+                              "udinv")}
+    for l_m, u_m in factors:
+        le = csr_to_ell(l_m, dtype=dtype, k=kl, n_rows_pad=ntot,
+                        device="cpu")
+        ue = csr_to_ell(u_m, dtype=dtype, k=ku, n_rows_pad=ntot,
+                        device="cpu")
+        arrays["l_cols"].append(le.cols.numpy())
+        arrays["l_vals"].append(le.vals.numpy())
+        arrays["u_cols"].append(ue.cols.numpy())
+        arrays["u_vals"].append(ue.vals.numpy())
+        du = u_m.diagonal().astype(np.float64)
+        dv = np.ones(ntot)  # 1 on the padding slots
+        dv[: len(du)] = 1.0 / np.where(du != 0, du, 1.0)
+        arrays["udinv"].append(dv.astype(_np_dtype(dtype)))
+    arrays = {k: np.stack(v) for k, v in arrays.items()}
+    arrays["plan"] = _stack(plans)
+    return DistPrecond(arrays=arrays, kind="schwarz",
+                       consts=(int(sweeps), combine.upper(), npl))
 
 
 def identity_precond() -> DistPrecond:
@@ -862,3 +1008,184 @@ def dist_solve(solver: Callable, a, b: torch.Tensor,
         m = prec
     return solver(op, b, x0=torch.zeros_like(b) if x0 is None else x0,
                   prec=m, comm=comm, **solver_kw)
+
+
+def dist_sstep_gmres(op, b: torch.Tensor, *, comm: Comm, s: int = 4,
+                     t_blocks: int = 8, max_restarts: int = 20,
+                     rtol: float = 1e-8, atol: float = 0.0,
+                     sigma: float | None = None, basis: str = "fused",
+                     shifts=None, basis_dtype=None) -> SolveResult:
+    """Communication-avoiding s-step GMRES on a global matrix-free
+    StencilOp over z-slabs (CA-GMRES, Hoemmen/Demmel), on this rank's
+    padded local ``b``.
+
+    ``basis='fused'``: each block's matrix-powers basis
+    W = [A q/σ … A^s q/σ^s] comes from ONE depth-(s·z-reach) exchange
+    (``gather_extended``) feeding the all-outputs stencil polynomial
+    (``stencil_powers_apply``: ``poly_kernel`` on the card, its plain
+    version on the CPU) on the rank's extended slab, with the rank's
+    z-bounds masking the ghost planes past the global faces at every stage
+    while interior cuts read real halo data; a block step costs one
+    exchange and four reductions (block CGS2 + CholQR2). A slab the
+    kernel's plan refuses raises. ``basis='loop'``: the baseline, one
+    depth-(z-reach) exchange an apply.
+
+    ``sigma``: without it ‖A‖ is estimated once on the global operator in
+    rank 0 (``estimate_opnorm``, the single-card driver's estimator) and
+    broadcast, so every rank and the JAX package scale the basis alike.
+    ``shifts``: Newton-basis shifts as for ``sstep_gmres``."""
+    from ..ops.matvec import spmv
+    from ..ops.stencil_op import StencilOp
+    from ..ops.stencil_poly import monomial_stages, stencil_powers_apply
+    from ..solvers.sstep_gmres import (estimate_opnorm, newton_basis_stages,
+                                       sstep_gmres)
+    from .distmatrix import distribute_stencil, gather_extended, zslab_bounds
+
+    if not isinstance(op, StencilOp):
+        raise TypeError("dist_sstep_gmres expects a global StencilOp")
+    if basis not in ("fused", "loop"):
+        raise ValueError(f"basis is 'fused' or 'loop', not {basis!r}")
+    p, me = comm.size, comm.index()
+    if sigma is None:
+        sig = (estimate_opnorm(lambda v: spmv(op, v), op.n_rows_pad,
+                               b.dtype, device=b.device) if me == 0 else 0.0)
+        # rank 0's value plus zeros: exact on every rank
+        sigma = float(comm.psum(torch.tensor(sig, dtype=torch.float64,
+                                             device=b.device)))
+    z_reach = max(max((abs(o[2]) for o in op.offsets), default=0), 1)
+    # the loop baseline exchanges once an apply, so single-apply depth
+    depth = s * z_reach if basis == "fused" else z_reach
+    al = distribute_stencil(op, p, depth=depth).local(me, b.device)
+    if shifts is not None:
+        stages = tuple((a, bt, g, 0.0)
+                       for a, bt, g in newton_basis_stages(shifts, sigma))
+    else:
+        stages = monomial_stages(s, sigma)
+    zb = tuple(int(z) for z in zslab_bounds(op, p, depth)[me])
+    off = depth * op.dims[0] * op.dims[1]
+    npl = al.row_map.n_local_pad
+
+    def powers_fn(q, sig):
+        ext = gather_extended(al.sel, al.valid, al.plan, q, comm)
+        u = stencil_powers_apply(al.op_local, stages, ext, z_bounds=zb)
+        return u[:, off:off + npl].T  # (npl, s)
+
+    return sstep_gmres(
+        local_op(al, comm), b, s=s, t_blocks=t_blocks,
+        max_restarts=max_restarts, rtol=rtol, atol=atol, sigma=sigma,
+        comm=comm, shifts=shifts,
+        powers_fn=powers_fn if basis == "fused" else None,
+        basis_impl="loop", basis_dtype=basis_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the operator as the eigensolvers see it (the Anasazi-over-Tpetra role)
+# ---------------------------------------------------------------------------
+
+
+def global_operator(a, comm: Comm, device=None) -> Callable:
+    """The distributed apply y = A·x as a solver sees it (Tpetra's
+    ``Operator::apply``), for a host DistMatrix / DistStencil or this
+    rank's local part; ``device`` (``None``: the card) places a host
+    matrix's part.
+
+    The JAX package's "global view" takes and returns whole GSPMD-sharded
+    arrays from one program over the mesh; here the group of ranks is that
+    view, and each rank's closure takes and returns its padded local
+    block, 1-D or (n, k): a solver run in every rank with ``comm`` is the
+    distributed solver."""
+    return local_op(_as_local(a, comm, device), comm)
+
+
+def global_precond(prec: DistPrecond, a, comm: Comm,
+                   device=None) -> Callable:
+    """The distributed apply of ``prec`` over the operator of ``a`` (see
+    :func:`global_operator`): this rank's closure on its padded local
+    block."""
+    al = _as_local(a, comm, device)
+    return prec.make(comm, local_op(al, comm), al.device)
+
+
+_EIG_V0_WIDTH = {
+    # solver name -> start-block width (0 = a single 1-D start vector)
+    "lobpcg": lambda nev, kw: nev,
+    "tracemin": lambda nev, kw: kw.get("block") or nev + 2,
+    "rtr": lambda nev, kw: kw.get("block") or nev,
+    "block_davidson": lambda nev, kw: kw.get("nb") or nev,
+    "generalized_davidson": lambda nev, kw: kw.get("nb") or nev,
+    "block_krylov_schur": lambda nev, kw: kw.get("nb") or 1,
+    "lanczos_eigs": lambda nev, kw: 0,
+    "arnoldi": lambda nev, kw: 0,
+    "power_method": lambda nev, kw: 0,
+}
+
+# the solvers whose ``m`` is the mass operator (elsewhere ``m`` may mean
+# something else, such as lanczos_eigs's basis length)
+_M_IS_MASS = ("lobpcg", "tracemin", "block_davidson",
+              "generalized_davidson", "rtr")
+
+
+def dist_eigsolve(eigsolver: Callable, a, nev: int, *, comm: Comm,
+                  v0: np.ndarray | None = None,
+                  prec: DistPrecond | Callable | None = None, seed: int = 7,
+                  mass_matrix=None, device=None, **kw):
+    """Run any eigensolver of ``trilinos_tpu_torch.eigen`` on a distributed
+    operator, in every rank of the group (Anasazi over Tpetra: each SolMgr
+    is MPI-distributed through MultiVecTraits).
+
+    ``a`` is a host DistMatrix / DistStencil or this rank's local part
+    (``device``, ``None`` meaning the card, places a host matrix's part).
+    The solver gets :func:`global_operator`'s closure, ``comm`` (so every
+    Gram matrix, norm and host decision reads values reduced over the
+    group, the same on every rank), the rank's ``n_local_pad`` as ``n``
+    (the solvers reduce it where they need the global size) and the rank's
+    chunk of the padded global start block as ``v0``.
+
+    ``v0`` is an unpadded host array ((n,) or (n, w)); without it the
+    start is ``default_rng(seed)`` normals as wide as the solver's own
+    default. Pad rows are zero, so the zero-pad subspace stays invariant.
+    ``prec``: a DistPrecond (made here over the operator) or a rank-local
+    apply. ``mass_matrix``: the M of the pencil A x = λ M x, bound as
+    ``mass`` (block Krylov-Schur) or ``m`` (the solvers of
+    ``_M_IS_MASS``); any other solver raises. Returns the solver's result
+    with the eigenvectors as this rank's padded local rows."""
+    import inspect
+
+    al = _as_local(a, comm, device)
+    dev, rmap = al.device, al.row_map
+    dtype = torch_dtype(kw.get("dtype", torch.float64))
+    params = list(inspect.signature(eigsolver).parameters)
+    if "dtype" not in params:  # lobpcg and lanczos take v0's dtype
+        kw.pop("dtype", None)
+    name = getattr(eigsolver, "__name__", "")
+    width = _EIG_V0_WIDTH.get(name, lambda nev, kw: nev)(nev, kw)
+    if v0 is None:
+        rng = np.random.default_rng(seed)
+        v0 = rng.standard_normal((rmap.n_global,) if width == 0
+                                 else (rmap.n_global, width))
+    v0l = torch.from_numpy(rmap.local_chunk(rmap.to_padded(
+        np.asarray(v0, dtype=_np_dtype(dtype))), comm.index()).copy()).to(dev)
+
+    op = local_op(al, comm)
+    if prec is not None:
+        kw["prec"] = (prec.make(comm, op, dev)
+                      if isinstance(prec, DistPrecond) else prec)
+    if mass_matrix is not None:
+        mop = global_operator(mass_matrix, comm, dev)
+        if "mass" in params:
+            kw["mass"] = mop
+        elif name in _M_IS_MASS:
+            kw["m"] = mop
+        else:
+            raise ValueError(
+                f"{name or eigsolver!r} does not support a mass matrix; "
+                "use lobpcg, tracemin, block_davidson, "
+                "generalized_davidson, rtr, or block_krylov_schur for "
+                "generalized pencils")
+    kw["comm"] = comm
+    if len(params) > 1 and params[1] == "n":
+        # (op, n, nev, ..., v0=): Davidson, Krylov-Schur, TraceMin, RTR
+        return eigsolver(op, rmap.n_local_pad, nev, v0=v0l, **kw)
+    if "nev" in params:  # lanczos_eigs(op, v0, nev, ...)
+        return eigsolver(op, v0l, nev, **kw)
+    return eigsolver(op, v0l, **kw)  # lobpcg, power_method, arnoldi
