@@ -74,7 +74,14 @@ GMRES at 256³ (one depth-4 exchange and one ``poly_kernel`` launch a
 block step on each rank's extended slab, held to the single card's run),
 AMG-LOBPCG at 256³ and GMRES(30) with restricted Schwarz at 128³ and 64³
 (``scripts/dist_cpu_counts.py`` gives the JAX package's 4-shard counts),
-each rank's kernels held bitwise against their plain versions on its data.
+then config 4 again on a (2, 2) rank grid (``make_mesh2``: the flat
+layout's iterations and x, bit for bit), Laplace3D on a (2, 2, 1) rank
+grid through Domi's MDMap (``dist_md_entry``: CG with the CA Chebyshev
+sweep, the operator and every stage on the padded block through
+``stencil_kernel``) at 256³ f32 and 64³ f64 (the JAX package's count), and
+the column-block dense LU (``dist_dense_solve``, n = 8192, f64, 4
+right-hand sides); each rank's kernels held bitwise against their plain
+versions on its data.
 
 Every hierarchy set-up must be served by the native SpGEMM, and every
 factorization by the native library. Each path
@@ -326,6 +333,20 @@ DIST_MV_K = 4
 # with the order of the reductions)
 DIST_SSTEP_RTOL = 1e-4
 DIST_EIG_ITERS_TOL = 1
+# the distributed layer, part 2b (section 7x): config 4 on a (2, 2) rank
+# grid, Laplace3D through Domi's MDMap on a (2, 2, 1) grid at
+# DIST_AMG_DIMS f32 (true residual ≤ DIST_MD_TRUE_MAX in f64) and at
+# DIST_SMALL_DIMS f64 (the JAX package's count on a (2, 2, 1) CPU mesh,
+# scripts/dist_cpu_counts.py), and the column-block dense LU at
+# DIST_DENSE_N, f64, DIST_DENSE_K right-hand sides, a + n·I from seed 17
+DIST_MD_GRID = (2, 2, 1)
+DIST_MD_TRUE_MAX = 1e-5
+DIST_MD_CPU_ITERS = 59
+DIST_DENSE_N = 8192
+DIST_DENSE_NB = 128
+DIST_DENSE_K = 4
+DIST_DENSE_RES_MAX = 1e-12  # ‖a·x − b‖ / ‖b‖
+DIST_DENSE_X_TOL = 1e-10  # max|Δx| / max|x| against torch.linalg.solve
 
 
 def mass27_stencil():
@@ -643,15 +664,23 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
     distributed SpMV and its transpose, structured AMG-PCG on the z-slab
     stencil at amg_dims, on small_dims fused-Chebyshev PCG and SA-AMG PCG
     with both set-ups, then s-step GMRES and AMG-LOBPCG at amg_dims and
-    Schwarz GMRES at c4_dims and small_dims. Each solve runs with the
-    counts at 0 just before and read just after; each kernel of a path is
-    held against its plain version on this rank's data first. Rank 0 then
-    times the kernels at the ranks' shapes while the others wait."""
+    Schwarz GMRES at c4_dims and small_dims, config 4 on a (2, 2) rank
+    grid, Laplace3D on a DIST_MD_GRID rank grid through Domi's MDMap at
+    amg_dims (f32) and small_dims (f64), and the column-block dense LU.
+    Each solve runs with the counts at 0 just before and read just after;
+    each kernel of a path is held against its plain version on this rank's
+    data first. Rank 0 then times the kernels at the ranks' shapes while
+    the others wait."""
     from trilinos_tpu_torch.entry import (dist_amg_entry, dist_eigen_entry,
+                                          dist_md_entry,
                                           dist_pipelined_cg_entry,
                                           dist_schwarz_entry,
                                           dist_sstep_entry)
     from trilinos_tpu_torch.galeri import laplace3d
+    from trilinos_tpu_torch.galeri.stencils import cross3d_stencil
+    from trilinos_tpu_torch.ops.stencil_op import StencilOp
+    from trilinos_tpu_torch.parallel.mdarray import halo_pad
+    from trilinos_tpu_torch.solvers import dist_dense_solve
     from trilinos_tpu_torch.ops import (chol_inv_small, dia_spmm, dia_spmv,
                                         dia_spmv_plain, stencil_poly_apply,
                                         stencil_poly_plain,
@@ -675,11 +704,13 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
         return torch.from_numpy(rmap.local_chunk(
             rmap.to_padded(host), me).copy()).to(device, dtype)
 
-    def run(label, step, *args, **kw):
+    def run(label, step, *args, via=None, **kw):
         """One solve with the counts at 0 just before and read just after;
-        the result's plain fields go to out[label]."""
+        the result's plain fields go to out[label]. ``via``: the comm whose
+        staged bytes the solve reads (the rank's group by default)."""
+        via = via or comm
         zero(kern)
-        comm.staged_bytes = 0
+        via.staged_bytes = 0
         torch.cuda.synchronize()
         comm.barrier()
         t0 = time.perf_counter()
@@ -687,7 +718,7 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         out[label] = dict(iters=int(res.iters), ms=ms,
-                          launches=counts(kern), staged=comm.staged_bytes,
+                          launches=counts(kern), staged=via.staged_bytes,
                           kernel_launches=stencil_powers_apply.kernel_launches)
         if hasattr(res, "resnorm"):
             out[label].update(resnorm=float(res.resnorm),
@@ -735,7 +766,19 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
             f"diags f64", (len(al.interior.offsets) + 2)
             * al.interior.n_rows_pad * 8, 2 * nnz)
     comm.barrier()
-    del step, al, b, xk
+    # (a) config 4 again on a (2, 2) rank grid of the same ranks: the rows
+    # run over the grid's flattened ranks, so the flat layout's iterations
+    # and x come back bit for bit
+    t0 = time.perf_counter()
+    grid = drv.make_mesh2(comm, 2, p // 2)
+    gstep, (gb,) = dist_pipelined_cg_entry(c4_dims, comm=grid, device=device)
+    setup_s = time.perf_counter() - t0
+    gres = run("c4_grid", gstep, gb, via=grid)
+    out["c4_grid"].update(
+        setup_s=setup_s, axes=drv.solve_axes(grid), coords=grid.coords,
+        x_diff=float((gres.x - out["c4"]["x"]).abs().max()),
+        b_diff=float((gb - b).abs().max()))
+    del step, al, b, xk, gstep, gb, gres
 
     # config 4 at the small grid, held to the JAX package's count
     step, (b,) = dist_pipelined_cg_entry(small_dims, n_ranks=p, comm=comm,
@@ -901,8 +944,72 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
         out[label].update(setup_s=setup_s, x=res.x if dims == c4_dims
                           else None)
         del step, b, al, res
+    # (b) Laplace3D on a DIST_MD_GRID rank grid through Domi's MDMap: CG
+    # with the CA Chebyshev sweep, the operator and each stage applying
+    # stencil_kernel to the padded block; at amg_dims f32, then at
+    # small_dims f64 (the JAX package's count)
+    t0 = time.perf_counter()
+    mstep, (mb,) = dist_md_entry(amg_dims, grid=DIST_MD_GRID, comm=comm,
+                                 device=device)
+    setup_s = time.perf_counter() - t0
+    mg = mstep.grid
+    ext = halo_pad(mb, mstep.mdmap, mg)
+    mop = StencilOp.create(tuple(reversed(ext.shape)),
+                           cross3d_stencil(6.0, *([-1.0] * 6)))
+    flat = torch.zeros(mop.n_rows_pad, dtype=mb.dtype, device=device)
+    flat[:mop.n_rows] = ext.reshape(-1)
+    bitwise("md padded block stencil", stencil_spmv(mop, flat),
+            stencil_spmv_plain(mop, flat))
+    res = run("md", mstep, mb, via=mg)
+    out["md"].update(setup_s=setup_s, x=res.x, coords=mg.coords,
+                     block=tuple(mb.shape), padded=tuple(ext.shape))
+    md_timing = None
+    if me == 0:
+        mconv = stencil_conv(mop)
+        md_timing = kernel_timing(
+            lambda: stencil_spmv(mop, flat),
+            lambda: stencil_spmv_plain(mop, flat),
+            lambda: mconv(flat[:mop.n_rows]),
+            "padded block " + "x".join(map(str, ext.shape)) + " f32 (the md "
+            f"CG's operator, rank 0 of a {DIST_MD_GRID} grid)",
+            2 * mop.n_rows_pad * 4, 2 * mop.nnz)
+    comm.barrier()
+    del mstep, mb, ext, flat, res
+    mstep_s, (sb,) = dist_md_entry(small_dims, grid=DIST_MD_GRID, comm=comm,
+                                  dtype=np.float64, device=device)
+    run("md_small", mstep_s, sb, via=mstep_s.grid)
+    del mstep_s, sb
+
+    # (c) the column-block dense LU over the ranks: a + n·I, f64, k = 4
+    rng = np.random.default_rng(17)
+    a_d = rng.standard_normal((DIST_DENSE_N, DIST_DENSE_N))
+    a_d[np.diag_indices(DIST_DENSE_N)] += DIST_DENSE_N
+    b_d = rng.standard_normal((DIST_DENSE_N, DIST_DENSE_K))
+    comm.staged_bytes = 0
+    torch.cuda.synchronize()
+    comm.barrier()
+    t0 = time.perf_counter()
+    x_d = dist_dense_solve(comm, a_d, b_d, nb=DIST_DENSE_NB, device=device)
+    torch.cuda.synchronize()
+    out["dense"] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                        staged=comm.staged_bytes)
+    if me == 0:
+        a_t = torch.from_numpy(a_d).to(device)
+        b_t = torch.from_numpy(b_d).to(device)
+        t0 = time.perf_counter()
+        x_ref = torch.linalg.solve(a_t, b_t)
+        torch.cuda.synchronize()
+        out["dense"].update(
+            res=float(torch.linalg.matrix_norm(a_t @ x_d - b_t)
+                      / torch.linalg.matrix_norm(b_t)),
+            x_rel=rel_err(x_d, x_ref)[0],
+            solve_ms=(time.perf_counter() - t0) * 1e3)
+        del a_t, b_t, x_ref
+    out["dense"]["x_sum"] = float(x_d.sum())  # the same on every rank
+    comm.barrier()
+    del a_d, b_d, x_d
     out["timing"] = dict(c4=c4_timing, amg=amg_timing, poly=poly_timing,
-                         sstep=sstep_timing, eigen=eig_timing)
+                         sstep=sstep_timing, eigen=eig_timing, md=md_timing)
     out["backend"] = comm.backend
     return out
 
@@ -2955,6 +3062,7 @@ def main():
     # -- 7x. the distributed layer: DIST_RANKS rank processes on this card --
     # (gloo; the kernels were built above, before any rank starts, so the
     # ranks load them and never race on the build directory)
+    from trilinos_tpu_torch.entry import MD_RTOL
     from trilinos_tpu_torch.parallel import driver as pdrv
     from trilinos_tpu_torch.parallel.map import Map
 
@@ -3155,6 +3263,76 @@ def main():
         if any(not r["launches"].get("dia_spmv") for r in sd):
             fail(f"distributed Schwarz GMRES at {grid_l}: a rank never "
                  "launched dia_kernel")
+    # (a) config 4 on the (2, 2) rank grid against the flat layout
+    cg_ = [r["c4_grid"] for r in ranks]
+    log(f"config 4 on a (2, 2) rank grid ({grid_c4} f64, make_mesh2, axes "
+        f"{cg_[0]['axes']}, coordinates {[r['coords'] for r in cg_]}): "
+        f"iters {[r['iters'] for r in cg_]} (flat layout "
+        f"{c4d[0]['iters']}); max|x − flat x| a rank "
+        f"{[r['x_diff'] for r in cg_]}, right-hand sides "
+        f"{[r['b_diff'] for r in cg_]}; set-up {cg_[0]['setup_s']:.2f} s; "
+        f"first solve {cg_[0]['ms']:.1f} ms; staged "
+        f"{[r['staged'] for r in cg_]} bytes; launches per rank "
+        f"{[r['launches'] for r in cg_]}")
+    if any(r["iters"] != c4d[0]["iters"] or r["x_diff"] != 0
+           or r["b_diff"] != 0 or not r["converged"] for r in cg_):
+        fail("config 4 on the rank grid: iterations or x differ from the "
+             "flat layout's")
+    if any(not r["launches"].get("dia_spmv") for r in cg_):
+        fail("config 4 on the rank grid: a rank never launched dia_kernel")
+    # (b) Laplace3D through Domi's MDMap on the DIST_MD_GRID rank grid
+    md_ = [r["md"] for r in ranks]
+    x_md = np.zeros(DIST_AMG_DIMS, np.float32)
+    for r in md_:
+        x_md[tuple(slice(c * d, (c + 1) * d)
+                   for c, d in zip(r["coords"], r["block"]))] = r["x"]
+    b_md = np.random.default_rng(0).standard_normal(DIST_AMG_DIMS)
+    csr_md = torch.sparse_csr_tensor(
+        torch.from_numpy(a256.row_ptr),
+        torch.from_numpy(a256.cols.astype(np.int64)),
+        torch.from_numpy(a256.vals.astype(np.float64)), a256.shape).to("cuda")
+    b64 = torch.from_numpy(b_md.reshape(-1)).to("cuda")
+    md_true = float(torch.linalg.vector_norm(
+        b64 - csr_md @ torch.from_numpy(x_md.reshape(-1)).to("cuda").double())
+        / torch.linalg.vector_norm(b64))
+    del csr_md, b64, x_md, b_md
+    log(f"md CG on a {DIST_MD_GRID} rank grid ({grid_a} f32, blocks "
+        f"{md_[0]['block']} padded to {md_[0]['padded']}, CA Chebyshev "
+        f"degree 3, rtol {MD_RTOL:.0e}): iters {[r['iters'] for r in md_]}, "
+        f"converged {[r['converged'] for r in md_]}; true relative residual "
+        f"(host CSR, f64) {md_true:.3e} (gate {DIST_MD_TRUE_MAX:.0e}); "
+        f"set-up {md_[0]['setup_s']:.2f} s; first solve {md_[0]['ms']:.1f} "
+        f"ms ({md_[0]['ms'] / md_[0]['iters']:.3f} ms/iter); staged "
+        f"{[r['staged'] for r in md_]} bytes; launches per rank "
+        f"{[r['launches'] for r in md_]}")
+    if len({r["iters"] for r in md_}) != 1 \
+            or not all(r["converged"] for r in md_) \
+            or not md_true <= DIST_MD_TRUE_MAX:
+        fail("md CG: iterations, convergence or true residual")
+    if any(not r["launches"].get("stencil_spmv") for r in md_):
+        fail("md CG: a rank never launched stencil_kernel")
+    ms_ = [r["md_small"] for r in ranks]
+    log(f"md CG on a {DIST_MD_GRID} rank grid ({grid_s} f64): iters "
+        f"{[r['iters'] for r in ms_]} (JAX package, CPU f64, a "
+        f"{DIST_MD_GRID} mesh: {DIST_MD_CPU_ITERS}); first solve "
+        f"{ms_[0]['ms']:.1f} ms; launches per rank "
+        f"{[r['launches'] for r in ms_]}")
+    if any(r["iters"] != DIST_MD_CPU_ITERS or not r["converged"]
+           or not r["launches"].get("stencil_spmv") for r in ms_):
+        fail(f"md CG at {grid_s}: iterations, convergence or launches")
+    # (c) the column-block dense LU
+    dn = ranks[0]["dense"]
+    log(f"dist_dense_solve (n {DIST_DENSE_N}, nb {DIST_DENSE_NB}, k "
+        f"{DIST_DENSE_K}, f64, {DIST_RANKS} ranks): ‖a·x − b‖/‖b‖ "
+        f"{dn['res']:.3e} (gate {DIST_DENSE_RES_MAX:.0e}); x vs "
+        f"torch.linalg.solve on rank 0 max|Δx|/max|x| {dn['x_rel']:.3e} (tol "
+        f"{DIST_DENSE_X_TOL:.0e}); {[r['dense']['ms'] for r in ranks]} ms a "
+        f"rank (torch.linalg.solve on one rank {dn['solve_ms']:.1f} ms); "
+        f"staged {[r['dense']['staged'] for r in ranks]} bytes")
+    if not dn["res"] <= DIST_DENSE_RES_MAX \
+            or not dn["x_rel"] <= DIST_DENSE_X_TOL \
+            or len({r["dense"]["x_sum"] for r in ranks}) != 1:
+        fail("dist_dense_solve: residual, solution or replication")
     dist_rows = []
     for key, name, source, replaces, also, label, launch_key in (
             ("c4", "dia_spmv", "dia_spmv.cu", "dia_spmv.py:273",
@@ -3166,7 +3344,9 @@ def main():
             ("sstep", "stencil_powers", "stencil_poly.cu",
              "stencil_poly.py:336", None, "sstep", "stencil_powers"),
             ("eigen", "stencil_spmm", "stencil_spmv.cu", "stencil_op.py:654",
-             None, "eigen", "stencil_spmm")):
+             None, "eigen", "stencil_spmm"),
+            ("md", "stencil_spmv", "stencil_spmv.cu", "stencil_op.py:475",
+             "stencil_op.py:702", "md", "stencil_spmv")):
         t = ranks[0]["timing"][key]
         per_rank = [r[label]["launches"].get(launch_key, 0) for r in ranks]
         errs = [v for k, v in ranks[0]["err"].items()

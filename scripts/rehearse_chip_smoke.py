@@ -8,7 +8,8 @@ BDIA, config 2 and config 4 grids cut as below, the uncoupled AMG's 128³ →
 24², other 128³ cases → 24³, the direct solvers' laplace2d 256² → 32² and
 64² → 16², Komplex 128² → 24² with the CPU's count there, the dense solve
 4096² → 256², the eigensolvers' 64³ grid → 12³, the distributed phases'
-256³ and 128³ grids → 32³ and 24³, their one-rank nccl group over gloo;
+256³ and 128³ grids → 32³ and 24³ and their dense LU's 8192² → 512², their
+one-rank nccl group over gloo;
 the distributed grid held to the JAX package's counts stays 64³; the
 distributed s-step run's residual gate is widened to float32's floor at
 32³) on the CPU: the rank processes fork from the rehearsal (so they keep its
@@ -149,6 +150,7 @@ reps = [("DIMS = (256, 256, 256)", "DIMS = (32, 32, 32)"),
         ("KOMPLEX_NX = 128", "KOMPLEX_NX = 24"),
         ("KOMPLEX_CPU_ITERS = 15", "KOMPLEX_CPU_ITERS = 14"),
         ("DENSE_N = 4096", "DENSE_N = 256"),
+        ("DIST_DENSE_N = 8192", "DIST_DENSE_N = 512"),
         ("EIG_SMALL_DIMS = (64, 64, 64)", "EIG_SMALL_DIMS = (12, 12, 12)"),
         # at 32³ the s-step runs end at float32's rounding floor, where
         # the distributed and single-card residual norms part by ≈ 1e-2

@@ -10,7 +10,7 @@ path serves wherever ``g++`` is found (``native_calls``), scipy's ``splu``
 only without the library (``python_calls``, forced here by a monkeypatch),
 where it agrees with the native solve to 1e-12; a block of right-hand
 sides (solved across threads) equals each column's own solve bit for bit.
-``dense_solve`` against
+``dense_solve`` and ``dist_dense_solve`` on one rank against
 ``jnp.linalg.solve`` to 1e-12; ``DirectPrec`` built by its own
 ``compute()`` and from the JAX inverse (``convert.direct_prec_from_numpy``)
 applies to 1e-12, the three pad cases too.
@@ -32,6 +32,7 @@ from trilinos_tpu_torch import native
 from trilinos_tpu_torch import precond as tprec
 from trilinos_tpu_torch.convert import direct_prec_from_numpy
 from trilinos_tpu_torch.ops import formats as TF
+from trilinos_tpu_torch.parallel.comm import SerialComm
 from trilinos_tpu_torch.solvers import (NotSpdError, SparseCholesky, SparseLu,
                                         dense_solve, direct_solve,
                                         dist_dense_solve)
@@ -145,9 +146,12 @@ def test_dense_solve_matches_jax(k):
     a = rng.standard_normal((40, 40)) + 40 * np.eye(40)
     b = rng.standard_normal((40,) if k is None else (40, k))
     got = dense_solve(torch.from_numpy(a), torch.from_numpy(b)).numpy()
-    assert rel(got, j_dense_solve(jnp.asarray(a), jnp.asarray(b))) <= TOL
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        dist_dense_solve(None, a, b)
+    want = j_dense_solve(jnp.asarray(a), jnp.asarray(b))
+    assert rel(got, want) <= TOL
+    # the column-block LU on one rank: every panel is the rank's own
+    one = dist_dense_solve(SerialComm(), a, b, nb=8, device="cpu").numpy()
+    assert one.shape == b.shape
+    assert rel(one, want) <= TOL
 
 
 @pytest.mark.parametrize("solver", ["KLU2", "TACHO", "CHOLMOD"])

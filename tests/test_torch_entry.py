@@ -37,6 +37,7 @@ import trilinos_tpu_torch
 from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
                                       bsr_gmres_entry, cheb_entry,
                                       dist_amg_entry, dist_eigen_entry,
+                                      dist_md_entry,
                                       dist_pipelined_cg_entry,
                                       dist_schwarz_entry, dist_sstep_entry,
                                       eigen_entry, elasticity_entry, entry,
@@ -435,7 +436,8 @@ def test_port_test_modules_hold_one_thread():
 def test_dist_entries_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for fn in (dist_sstep_entry, dist_eigen_entry, dist_schwarz_entry):
+    for fn in (dist_sstep_entry, dist_eigen_entry, dist_schwarz_entry,
+               dist_md_entry):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn(comm=SerialComm())
 

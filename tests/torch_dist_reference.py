@@ -18,19 +18,25 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
+from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as PS
 
 from trilinos_tpu import eigen as JE
 from trilinos_tpu.galeri import laplace3d as jlaplace3d
 from trilinos_tpu.io import matrix_market as jmm
+from trilinos_tpu.ops.pallas.stencil_poly import chebyshev_stages as jcheb
 from trilinos_tpu.ops import formats as F
 from trilinos_tpu.parallel import dist_setup as jds
 from trilinos_tpu.parallel import distmatrix as JD
 from trilinos_tpu.parallel import driver as jdrv
+from trilinos_tpu.parallel import mdarray as JMD
 from trilinos_tpu.parallel.comm import AxisComm
 from trilinos_tpu.solvers import cg as jcg
 from trilinos_tpu.solvers import cg_pipeline as jcg_pipeline
+from trilinos_tpu.solvers import cg_single_reduce as jcg_single_reduce
 from trilinos_tpu.solvers import gmres as jgmres
+from trilinos_tpu.solvers.pliris import dist_dense_solve as jdist_dense_solve
+from trilinos_tpu_torch.entry import MD_CHEB_LMAX, MD_RTOL
 from trilinos_tpu_torch.io import write_sparse
 from trilinos_tpu_torch.parallel import driver as drv
 from trilinos_tpu_torch.parallel.map import Map
@@ -177,7 +183,8 @@ def ranks_port(tmp_path_factory):
     """Every rank's parts from the group of 4 and the group of 8: the
     applies gathered in rank order (``name/op/label``, the Schwarz applies
     ``schwarz/mode/label``, the exchange modes), the bytes each rank
-    staged and LOBPCG's result of each rank (``eigen/lobpcg``)."""
+    staged, LOBPCG's result of each rank (``eigen/lobpcg``) and each
+    rank's grid, mdarray and Pliris cases (``twins``)."""
     root = tmp_path_factory.getbasetemp()
 
     def compute():
@@ -186,11 +193,12 @@ def ranks_port(tmp_path_factory):
         for p in RANKS:
             ranks = drv.launch(T.ranks_spmv, p, str(mtx), device="cpu",
                                rendezvous_dir=root, timeout=TIMEOUT)
+            per_rank = ("staged", "eigen/lobpcg", "twins")
             got = {k: (ranks[0][k] if k.endswith("mode")
                        else gather(ranks, k))
-                   for k in ranks[0] if k not in ("staged", "eigen/lobpcg")}
-            got["staged"] = [r["staged"] for r in ranks]
-            got["eigen/lobpcg"] = [r["eigen/lobpcg"] for r in ranks]
+                   for k in ranks[0] if k not in per_rank}
+            for k in per_rank:
+                got[k] = [r[k] for r in ranks]
             out[p] = got
         return out
 
@@ -404,3 +412,105 @@ def jax_schwarz_gmres():
         restart=30, rtol=1e-8, maxiter=1000)
     return dict(iters=int(res.iters), b=b,
                 x=dm.row_map.from_padded(np.asarray(res.x)))
+
+
+# -- rank grids, mdarray and Pliris (the twins' JAX sides) ------------------
+
+def twins(port, key):
+    """Each rank's ``key`` case group from the group of 8 (the md entry's
+    from the group of 4)."""
+    p = 4 if key == "md_entry" else 8
+    return [r[key] for r in port[p]["twins"]]
+
+
+def jax_grid():
+    """The JAX package's two-level (2, 4) mesh on the grid twin's problem:
+    ``solve_axes`` and each solve's iterations and unpadded x."""
+    a = jcsr(T.laplace2d(*T.GRID_LAPLACE))
+    dm = JD.distribute(a, 8)
+    mesh2 = jdrv.make_mesh2(*T.GRID_SHAPE)
+    bg = jnp.asarray(dm.row_map.to_padded(T.vectors(a.shape[0], 21)))
+    runs = {"cg": lambda: jdrv.dist_solve(
+                jcg, dm, bg, mesh=mesh2,
+                prec=jdrv.dist_jacobi(a, dm.row_map), **T.GRID_KW["cg"]),
+            "gmres": lambda: jdrv.dist_solve(jgmres, dm, bg, mesh=mesh2,
+                                             **T.GRID_KW["gmres"]),
+            "lsqr": lambda: jdrv.dist_lsqr(dm, bg, mesh=mesh2,
+                                           **T.GRID_KW["lsqr"])}
+    out = {"solve_axes": (jdrv.solve_axes(mesh2),
+                          jdrv.solve_axes(jdrv.make_mesh(8)))}
+    for name, run in runs.items():
+        res = run()
+        out[name] = dict(iters=int(res.iters),
+                         x=dm.row_map.from_padded(np.asarray(res.x)))
+    return out
+
+
+def _mesh(shape, axes):
+    n = int(np.prod(shape))
+    return Mesh(np.array(jax.devices()[:n]).reshape(shape), axes)
+
+
+def jax_md():
+    """The JAX package's mdarray on the twin's cases: the applies, the md
+    dot, the md solves' iterations and x, the CA sweeps and the md entry's
+    solve on a (2, 2, 1) mesh."""
+    m2 = _mesh((2, 4), ("x", "y"))
+    out = {}
+    for name, (shape, axes, halo, per, seed, fn) in T.MD_APPLIES.items():
+        mdm = JMD.MDMap(shape, axes, halo=halo, periodic=per)
+        out[name] = np.asarray(JMD.md_map_apply(mdm, m2, fn)(
+            mdm.distribute(T.md_field(shape, seed), m2)))
+    md = JMD.MDMap((16, 32), ("x", "y"), halo=(1, 1))
+    rng = np.random.default_rng(5)
+    fa, fb = rng.standard_normal((16, 32)), rng.standard_normal((16, 32))
+    dot = jax.jit(jax.shard_map(JMD.md_dot(m2), mesh=m2,
+                                in_specs=(md.spec(), md.spec()),
+                                out_specs=PS()))
+    out["md_dot"] = float(dot(md.distribute(fa, m2), md.distribute(fb, m2)))
+
+    def solve(label, solver, mdm, mesh, fn, seed, **kw):
+        res = JMD.md_solve(solver, mdm, mesh, fn, jnp.asarray(
+            T.md_field(mdm.global_shape, seed)), **kw)
+        out[label] = dict(iters=int(res.iters), x=np.asarray(res.x))
+
+    solve("cg_2d", jcg, md, m2, T.lap5, 7, rtol=1e-12, maxiter=2000)
+    solve("cg_3d", jcg_single_reduce,
+          JMD.MDMap((8, 8, 16), ("x", "y", "z"), halo=(1, 1, 1)),
+          _mesh((2, 2, 2), ("x", "y", "z")), T.lap7, 8, rtol=1e-12,
+          maxiter=3000)
+    s = len(T.MD_POLY_STAGES)
+    for per in (False, True):
+        deep = JMD.MDMap((16, 32), ("x", "y"), halo=(s, s),
+                         periodic=(per, per))
+        out[f"chained/{per}"] = np.asarray(JMD.md_poly_apply(
+            deep, m2, T.lap5, T.MD_POLY_STAGES)(
+                deep.distribute(T.md_field((16, 32), 11), m2)))
+    ca = T.MD_CA
+    prec = JMD.md_poly_local(
+        JMD.MDMap((16, 32), ("x", "y"), halo=(ca["degree"],) * 2), m2,
+        T.lap5, jcheb(ca["lmax"], ca["lmin"], ca["degree"], ca["dinv"]))
+    solve("ca_cg", jcg, md, m2, T.lap5, 12, prec_local=prec, rtol=1e-11,
+          maxiter=500)
+    solve("ca_cg_plain", jcg, md, m2, T.lap5, 12, rtol=1e-11, maxiter=500)
+    # dist_md_entry's solve: CG + degree-3 Chebyshev stages, halo 3
+    dims, axes = T.MD_ENTRY_DIMS, ("x", "y", "z")
+    m221 = _mesh((2, 2, 1), axes)
+    stages = jcheb(MD_CHEB_LMAX, MD_CHEB_LMAX / 30.0, 3, 1.0 / 6.0)
+    res = JMD.md_solve(
+        jcg, JMD.MDMap(dims, axes, halo=(1, 1, 1)), m221, T.lap7,
+        jnp.asarray(np.random.default_rng(0).standard_normal(dims)),
+        prec_local=JMD.md_poly_local(JMD.MDMap(dims, axes, halo=(3, 3, 3)),
+                                     m221, T.lap7, stages),
+        rtol=MD_RTOL, maxiter=2000)
+    out["md_entry"] = dict(iters=int(res.iters), x=np.asarray(res.x))
+    return out
+
+
+def jax_pliris():
+    """The JAX package's dist_dense_solve on an 8-device mesh, each twin
+    case."""
+    mesh = Mesh(np.array(jax.devices()[:8]), ("cols",))
+    return {name: np.asarray(jdist_dense_solve(
+                mesh, *T.pliris_system(n, seed, piv, k), nb=nb))
+            for name, (n, nb, seed, piv, k) in T.PLIRIS_CASES.items()}

@@ -24,6 +24,7 @@ import torch.distributed as dist
 
 from trilinos_tpu_torch import eigen as E
 from trilinos_tpu_torch.entry import (dist_amg_entry, dist_eigen_entry,
+                                      dist_md_entry,
                                       dist_pipelined_cg_entry,
                                       dist_schwarz_entry, dist_sstep_entry,
                                       eigen_entry, sstep_entry)
@@ -34,9 +35,13 @@ from trilinos_tpu_torch.ops.matvec import spmv
 from trilinos_tpu_torch.parallel import dist_setup
 from trilinos_tpu_torch.parallel import distmatrix as D
 from trilinos_tpu_torch.parallel import driver as drv
+from trilinos_tpu_torch.parallel import mdarray as MD
+from trilinos_tpu_torch.parallel.comm import ProcessGrid
 from trilinos_tpu_torch.parallel.map import Map
 from trilinos_tpu_torch.precond import SaAmg
-from trilinos_tpu_torch.solvers import cg, gmres
+from trilinos_tpu_torch.solvers import (cg, cg_single_reduce,
+                                        dist_dense_solve, gmres)
+from trilinos_tpu_torch.ops.stencil_poly import chebyshev_stages
 from trilinos_tpu_torch.solvers.sstep_gmres import estimate_opnorm
 
 K = 4  # multivector width of the SpMV cases
@@ -123,6 +128,12 @@ def ranks_spmv(comm, device, mtx_path=None):
     out.update(schwarz_applies(comm, device))
     # LOBPCG over the group (the JAX package runs it at 4 and 8 shards)
     out["eigen/lobpcg"] = _eigen("lobpcg", comm, device)
+    # the twins of the JAX package's two-level mesh, mdarray and Pliris
+    # tests on 8 ranks, and the md entry on a (2, 2, 1) grid of 4
+    out["twins"] = ({"grid": grid_cases(comm, device),
+                     "md": md_cases(comm, device),
+                     "pliris": pliris_cases(comm, device)} if p == 8
+                    else {"md_entry": md_entry_case(comm, device)})
     if mtx_path is not None:
         dmr = read_sparse_distributed(mtx_path, p)
         alr = dmr.local(me, device)
@@ -435,3 +446,241 @@ RANK_CASES = {
     "entry/sstep": lambda comm, device: _entry("sstep", comm, device),
     "entry/eigen": lambda comm, device: _entry("eigen", comm, device),
 }
+
+
+# -- rank grids, Domi's MDMap/MDVector and Pliris ----------------------------
+
+# the twin of tests/test_dist_twolevel.py: laplace2d 16² over a (2, 4) grid
+# and over the flat group of 8
+GRID_SHAPE = (2, 4)
+GRID_LAPLACE = (16, 16)
+GRID_KW = {"cg": dict(rtol=1e-10, maxiter=400),
+           "gmres": dict(rtol=1e-8, maxiter=400, restart=30),
+           "lsqr": dict(rtol=1e-8, maxiter=600)}
+
+
+def _grid_run(al, a, rmap, x, b, comm):
+    out = {"spmv": drv.dist_spmv(al, x, comm),
+           "spmv_t": drv.dist_spmv_t(al, x, comm)}
+    runs = {"cg": lambda: drv.dist_solve(cg, al, b, comm=comm,
+                                         prec=drv.dist_jacobi(a, rmap),
+                                         **GRID_KW["cg"]),
+            "gmres": lambda: drv.dist_solve(gmres, al, b, comm=comm,
+                                            **GRID_KW["gmres"]),
+            "lsqr": lambda: drv.dist_lsqr(al, b, comm=comm,
+                                          **GRID_KW["lsqr"])}
+    for name, run in runs.items():
+        res = run()
+        out[name] = dict(x=res.x, iters=int(res.iters),
+                         converged=bool(res.converged))
+    return out
+
+
+def grid_cases(comm, device):
+    """The (2, 4) grid's layout, ``solve_axes``, the refused sizes, and
+    every apply and solve of the twin on the grid and on the flat
+    group."""
+    me = comm.index()
+    out = {}
+    for label, shape in (("too_many", (4, 4)), ("too_few", (2, 2))):
+        try:
+            drv.make_mesh2(comm, *shape)
+            out[label] = None
+        except ValueError as err:
+            out[label] = str(err)
+    grid = drv.make_mesh2(comm, *GRID_SHAPE)
+    out.update(solve_axes=(drv.solve_axes(grid), drv.solve_axes(comm)),
+               coords=grid.coords, index=grid.index(),
+               axis_ranks=tuple(grid.axis(nm).rank
+                                for nm in grid.axis_names),
+               axis_sizes=tuple(grid.axis(nm).size
+                                for nm in grid.axis_names))
+    a = laplace2d(*GRID_LAPLACE)
+    dm = D.distribute(a, comm.size)
+    al = dm.local(me, device)
+    n = a.shape[0]
+    x = _local(dm.row_map, vectors(n, 20), me, device)
+    b = _local(dm.row_map, vectors(n, 21), me, device)
+    out["grid"] = _grid_run(al, a, dm.row_map, x, b, grid)
+    out["flat"] = _grid_run(al, a, dm.row_map, x, b, comm)
+    return out
+
+
+# the twin of tests/test_mdarray.py on a (2, 4) grid (axes x, y) and a
+# (2, 2, 2) one (x, y, z): case → (global shape, grid axes, halo, periodic,
+# seed)
+def lap5(u):
+    """5-point Laplacian on a 1-cell-padded block."""
+    c = u[1:-1, 1:-1]
+    return (4.0 * c - u[:-2, 1:-1] - u[2:, 1:-1]
+            - u[1:-1, :-2] - u[1:-1, 2:])
+
+
+def lap7(u):
+    """7-point Laplacian on a 1-cell-padded block, its terms in the order of
+    Galeri's cross with x the last axis (``stencil_block_fn``'s order)."""
+    c = u[1:-1, 1:-1, 1:-1]
+    return (6.0 * c
+            - u[1:-1, 1:-1, :-2] - u[1:-1, 1:-1, 2:]
+            - u[1:-1, :-2, 1:-1] - u[1:-1, 2:, 1:-1]
+            - u[:-2, 1:-1, 1:-1] - u[2:, 1:-1, 1:-1])
+
+
+def diag9(u):
+    return u[:-2, :-2] + u[2:, 2:] + u[:-2, 2:] + u[2:, :-2]
+
+
+def shift2(u):
+    return u[:-4, :]  # the value from 2 rows above
+
+
+MD_APPLIES = {
+    "dirichlet": ((16, 32), ("x", "y"), (1, 1), (False, False), 0, lap5),
+    "periodic": ((16, 32), ("x", "y"), (1, 1), (True, True), 1, lap5),
+    "corner": ((8, 16), ("x", "y"), (1, 1), (True, True), 2, diag9),
+    "halo2": ((16, 16), ("x", "y"), (2, 0), (True, False), 3, shift2),
+    "local_axis": ((16, 16), ("x", None), (1, 1), (False, True), 4, lap5),
+}
+MD_POLY_STAGES = ((0.0, 0.0, 0.0, 0.25), (-0.2, 1.0, 0.0, 0.25),
+                  (-0.2, 1.05, -0.3, 0.2))  # a Chebyshev-like chain
+MD_CA = dict(lmax=1.9, lmin=0.06, degree=3, dinv=0.25)
+
+
+def md_field(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
+def md_cases(comm, device):
+    """Every case of the mdarray twin on this rank: layouts, the refused
+    maps, the applies and dots gathered, the md CGs' iterations and
+    gathered x, the CA sweep against chained applies."""
+    g2 = ProcessGrid(comm, (2, 4), ("x", "y"))
+    g3 = ProcessGrid(comm, (2, 2, 2), ("x", "y", "z"))
+    out = {}
+    md = MD.MDMap((16, 32), ("x", "y"), halo=(1, 1))
+    arange = np.arange(16 * 32, dtype=np.float64).reshape(16, 32)
+    out["layout"] = dict(
+        local_shape=md.local_shape(g2),
+        mixed=MD.MDMap((16, 32, 3), ("x", "y", None)).local_shape(g2),
+        gathered=md.gather(md.local_block(arange, g2, device), g2))
+    for label, make in (
+            ("indivisible",
+             lambda: MD.MDMap((15, 32), ("x", "y")).local_shape(g2)),
+            ("halo_mismatch", lambda: MD.md_poly_apply(
+                md, g2, lap5, ((1.0, 0, 0, 0), (1.0, 0, 0, 0))))):
+        try:
+            make()
+            out[label] = None
+        except ValueError as err:
+            out[label] = str(err)
+    for name, (shape, axes, halo, per, seed, fn) in MD_APPLIES.items():
+        mdm = MD.MDMap(shape, axes, halo=halo, periodic=per)
+        blk = mdm.local_block(md_field(shape, seed), g2, device)
+        out[name] = mdm.gather(MD.md_map_apply(mdm, g2, fn)(blk), g2)
+    rng = np.random.default_rng(5)
+    fa, fb = rng.standard_normal((16, 32)), rng.standard_normal((16, 32))
+    out["md_dot"] = float(MD.md_dot(g2)(md.local_block(fa, g2, device),
+                                       md.local_block(fb, g2, device)))
+
+    def solve(label, solver, mdm, grid, fn, seed, **kw):
+        res = MD.md_solve(solver, mdm, grid, fn, mdm.local_block(
+            md_field(mdm.global_shape, seed), grid, device), **kw)
+        out[label] = dict(iters=int(res.iters), converged=bool(res.converged),
+                          x=mdm.gather(res.x, grid))
+
+    solve("cg_2d", cg, md, g2, lap5, 7, rtol=1e-12, maxiter=2000)
+    solve("cg_3d", cg_single_reduce,
+          MD.MDMap((8, 8, 16), ("x", "y", "z"), halo=(1, 1, 1)), g3, lap7, 8,
+          rtol=1e-12, maxiter=3000)
+    for per in (False, True):
+        s = len(MD_POLY_STAGES)
+        deep = MD.MDMap((16, 32), ("x", "y"), halo=(s, s),
+                        periodic=(per, per))
+        one = MD.MDMap((16, 32), ("x", "y"), halo=(1, 1),
+                       periodic=(per, per))
+        x0 = one.local_block(md_field((16, 32), 11), g2, device)
+        got = MD.md_poly_apply(deep, g2, lap5, MD_POLY_STAGES)(x0)
+        # the reference: chained single applies with a full exchange each
+        apply1 = MD.md_map_apply(one, g2, lap5)
+        u_prev2, u_prev = torch.zeros_like(x0), x0
+        for (a, bt, g, z) in MD_POLY_STAGES:
+            u = torch.zeros_like(x0)
+            if a:
+                u = a * apply1(u_prev)
+            if bt:
+                u = u + bt * u_prev
+            if g:
+                u = u + g * u_prev2
+            if z:
+                u = u + z * x0
+            u_prev2, u_prev = u_prev, u
+        out[f"chained/{per}"] = dict(poly=deep.gather(got, g2),
+                                     chained=one.gather(u_prev, g2))
+    deg = MD_CA["degree"]
+    prec = MD.md_poly_local(
+        MD.MDMap((16, 32), ("x", "y"), halo=(deg, deg)), g2, lap5,
+        chebyshev_stages(MD_CA["lmax"], MD_CA["lmin"], deg, MD_CA["dinv"]))
+    solve("ca_cg", cg, md, g2, lap5, 12, prec_local=prec, rtol=1e-11,
+          maxiter=500)
+    solve("ca_cg_plain", cg, md, g2, lap5, 12, rtol=1e-11, maxiter=500)
+    try:
+        MD.md_solve(cg, md, g2, lap5, md.local_block(arange, g2, device),
+                    prec_local=prec, prec=lambda v: v)
+        out["both_precs"] = None
+    except ValueError as err:
+        out["both_precs"] = str(err)
+    out["staged"] = g2.staged_bytes + g3.staged_bytes
+    return out
+
+
+MD_ENTRY_DIMS = (16, 16, 16)  # dist_md_entry on a (2, 2, 1) grid of 4
+
+
+def md_entry_case(comm, device):
+    step, (b,) = dist_md_entry(MD_ENTRY_DIMS, comm=comm, dtype=np.float64,
+                               device=device)
+    res = step(b)
+    return dict(iters=int(res.iters), converged=bool(res.converged),
+                x=step.mdmap.gather(res.x, step.grid),
+                b=step.mdmap.gather(b, step.grid), coords=step.grid.coords)
+
+
+# the twin of tests/test_pliris.py on 8 ranks: case → (n, nb, seed, zero
+# leading diagonal, right-hand sides)
+PLIRIS_CASES = {"128-16": (128, 16, 1, False, None),
+                "256-32": (256, 32, 1, False, None),
+                "pivot": (128, 16, 2, True, None),
+                "rhs5": (128, 16, 3, False, 5),
+                "crossing": (64, 8, 5, False, None)}
+
+
+def pliris_system(n, seed, need_pivot=False, k=None):
+    """The JAX package's ``_system``: a + n·I (or a with a zero leading
+    diagonal) and b, with k columns of seed-4 normals for ``k``."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n))
+    if need_pivot:
+        a[0, 0] = 0.0
+        a[1, 1] = 0.0
+    else:
+        a += n * np.eye(n)
+    b = rng.standard_normal(n)
+    if k is not None:
+        b = np.random.default_rng(4).standard_normal((n, k))
+    return a, b
+
+
+def pliris_cases(comm, device):
+    out = {name: dist_dense_solve(comm, *pliris_system(n, seed, piv, k),
+                                  nb=nb, device=device)
+           for name, (n, nb, seed, piv, k) in PLIRIS_CASES.items()}
+    a, b = pliris_system(64, 0)
+    for label, args, nb in (("divisible", (a[:60, :60], b[:60]), 128),
+                            ("square", (a[:, :32], b), 128),
+                            ("panel", (a, b), 3)):
+        try:
+            dist_dense_solve(comm, *args, nb=nb, device=device)
+            out[label] = None
+        except ValueError as err:
+            out[label] = str(err)
+    return out

@@ -164,6 +164,19 @@ by ``dist_schwarz`` (overlap 1, ILU(0) subdomains, restricted:
 ``step(b)``, with ``step.matrix``, ``step.row_map`` and
 ``step.preconditioner``.
 
+``dist_md_entry()``: Laplace3D on a field split over a rank grid (Domi's
+MDMap/MDVector, ``parallel/mdarray.py``): the global field of ``dims``
+has its axis i split over axis i of a ``grid`` of ranks (``comm``'s
+group, made a ``ProcessGrid`` with axes x, y, z when it is not one
+already); CG at rtol ``MD_RTOL`` through ``md_solve``, preconditioned by
+``md_poly_local`` with degree-3 Chebyshev stages on D⁻¹A (λmax bound 2,
+λmin = λmax / 30), one depth-3 exchange an apply; the operator and every
+stage apply the 7-point stencil to the padded block through
+``stencil_spmv`` (``stencil_kernel`` on the card); float32 by default,
+on the seed-0 normals over the global field. ``step(b)`` on the rank's
+block, with ``step.grid``, ``step.mdmap`` and the block apply as
+``step.local_fn``.
+
 Every entry takes ``device`` (``None`` means the CUDA card and raises
 without one); the hierarchy paths also take an already-built hierarchy as
 ``amg=`` so one hierarchy can serve several paths, and their grid, dtype
@@ -509,6 +522,37 @@ def dist_schwarz_entry(dims=(128, 128, 128), n_ranks=None, comm=None,
 
     step.matrix, step.row_map, step.preconditioner = al, dm.row_map, pc
     return step, (_local_rhs(dm.row_map, 3, comm.index(), dev),)
+
+
+MD_RTOL = 5e-6  # 256³ float32 CG stalls near 1.1e-6 (on an H100): 5x above
+MD_CHEB_LMAX = 2.0  # Gershgorin bound of D⁻¹A for the 7-point Laplacian
+
+
+def dist_md_entry(dims=(256, 256, 256), grid=(2, 2, 1), comm=None,
+                  dtype=np.float32, device=None):
+    from .galeri.stencils import cross3d_stencil
+    from .ops.stencil_poly import chebyshev_stages
+    from .parallel.comm import ProcessGrid
+    from .parallel.mdarray import (MDMap, md_poly_local, md_solve,
+                                   stencil_block_fn)
+
+    dev = resolve_device(device)
+    comm = _rank_comm(comm, None)
+    pg = (comm if isinstance(comm, ProcessGrid)
+          else ProcessGrid(comm, grid, ("x", "y", "z")))
+    md_op = MDMap(dims, pg.axis_names, halo=(1, 1, 1))
+    md_deep = MDMap(dims, pg.axis_names, halo=(3, 3, 3))
+    local_fn = stencil_block_fn(cross3d_stencil(6.0, *([-1.0] * 6)))
+    stages = chebyshev_stages(MD_CHEB_LMAX, MD_CHEB_LMAX / 30.0, 3, 1.0 / 6.0)
+    prec = md_poly_local(md_deep, pg, local_fn, stages)
+
+    def step(b_blk: torch.Tensor):
+        return md_solve(cg, md_op, pg, local_fn, b_blk, prec_local=prec,
+                        rtol=MD_RTOL, maxiter=2000)
+
+    step.grid, step.mdmap, step.local_fn = pg, md_op, local_fn
+    b = np.random.default_rng(0).standard_normal(md_op.global_shape)
+    return step, (md_op.local_block(b, pg, dev, torch_dtype(dtype)),)
 
 
 def build_entry(solver="CG", prec="CHEBYSHEV", dims=(256, 256, 256),

@@ -1,7 +1,8 @@
-from .comm import (Comm, ProcessComm, SerialComm, dot, fused_dots, norm2)
-from . import dist_setup, distmatrix, driver, partition
+from .comm import (Comm, ProcessComm, ProcessGrid, SerialComm, dot,
+                   fused_dots, norm2)
+from . import dist_setup, distmatrix, driver, mdarray, partition
 from .map import Directory, Map
 
-__all__ = ["Comm", "Directory", "Map", "ProcessComm", "SerialComm",
-           "dist_setup", "distmatrix", "dot", "driver", "fused_dots",
-           "norm2", "partition"]
+__all__ = ["Comm", "Directory", "Map", "ProcessComm", "ProcessGrid",
+           "SerialComm", "dist_setup", "distmatrix", "dot", "driver",
+           "fused_dots", "mdarray", "norm2", "partition"]

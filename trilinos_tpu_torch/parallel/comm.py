@@ -10,6 +10,11 @@ solvers are written against (the analogue of ``Teuchos::Comm``).
   ``shard_map``). Reductions are ``all_reduce``, the tiled gather is
   ``all_gather``; the halo exchanges of ``distmatrix`` go through
   :meth:`ProcessComm.wire` and :meth:`ProcessComm.unwire` too.
+* ``ProcessGrid``: the ranks of a ``ProcessComm`` laid out as a grid with
+  named axes (the JAX package's ``Mesh`` of several axes), outer-major, with
+  one ``ProcessComm`` per axis over the grid line through this rank. It is
+  itself a ``ProcessComm`` over the whole group, so every driver that takes
+  a comm takes a grid.
 
 The transport is fixed when a ``ProcessComm`` is made and never changes
 while it runs. ``nccl`` moves device buffers as they are and refuses a CPU
@@ -20,6 +25,7 @@ bytes that went through the host, both ways.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -65,6 +71,9 @@ class SerialComm(Comm):
     def index(self) -> int:
         return 0
 
+    def broadcast(self, x, src: int):
+        return x
+
     def __repr__(self):
         return "SerialComm()"
 
@@ -89,6 +98,12 @@ class ProcessComm(Comm):
 
     def index(self) -> int:
         return self.rank
+
+    def peer(self, r: int) -> int:
+        """The default group's rank of this group's rank ``r`` (what
+        ``torch.distributed``'s point-to-point calls take)."""
+        return r if self.group is None else dist.get_global_rank(self.group,
+                                                                 r)
 
     # -- transport ----------------------------------------------------------
     def wire(self, t: torch.Tensor) -> torch.Tensor:
@@ -129,6 +144,19 @@ class ProcessComm(Comm):
     def pmin(self, x):
         return self._reduce(x, dist.ReduceOp.MIN)
 
+    def broadcast(self, x, src: int) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank. The other ranks' ``x`` gives
+        only the shape, dtype and device of the result."""
+        x = torch.as_tensor(x)
+        if self.rank == src:
+            buf = self.wire(x)
+        elif self.backend == "gloo":
+            buf = torch.empty(x.shape, dtype=x.dtype)
+        else:
+            buf = torch.empty_like(x)
+        dist.broadcast(buf, src=self.peer(src), group=self.group)
+        return x if self.rank == src else self.unwire(buf, x)
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Tiled gather: every rank's ``x`` (equal shapes) concatenated
         along axis 0 in rank order."""
@@ -143,6 +171,76 @@ class ProcessComm(Comm):
     def __repr__(self):
         return (f"ProcessComm(rank={self.rank}, size={self.size}, "
                 f"backend={self.backend!r})")
+
+
+class ProcessGrid(ProcessComm):
+    """The ranks of ``comm`` as a grid of ``shape`` with named axes,
+    outer-major: this rank's ``coords`` flatten (C order) to its rank in
+    ``comm``. Reductions and gathers run over the whole group in its rank
+    order, as ``comm``'s do; :meth:`axis` is the ``ProcessComm`` of the
+    grid line through this rank along one axis, whose rank is this rank's
+    coordinate there.
+
+    Every rank creates every line's ``torch.distributed`` group, the lines
+    it is not on too, in the same order (axis by axis, lines in C order):
+    a rank that skipped one would leave its peers waiting. The grid covers
+    the group exactly."""
+
+    def __init__(self, comm: ProcessComm, shape, axis_names):
+        shape = tuple(int(s) for s in shape)
+        names = tuple(axis_names)
+        if len(shape) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"a grid needs one distinct name an axis, got "
+                             f"shape {shape} and names {names}")
+        n = int(np.prod(shape))
+        if n > comm.size:
+            raise ValueError(f"requested {n} grid ranks but only "
+                             f"{comm.size} available")
+        if n != comm.size:
+            raise ValueError(f"requested {n} grid ranks but the group has "
+                             f"{comm.size}: a grid covers every rank")
+        self._axes = {}
+        super().__init__(comm.group)
+        self.shape, self.axis_names = shape, names
+        self.coords = tuple(int(c) for c in np.unravel_index(self.rank,
+                                                             shape))
+        ranks = np.arange(n).reshape(shape)
+        for ax, name in enumerate(names):
+            for line in np.moveaxis(ranks, ax, -1).reshape(-1, shape[ax]):
+                group = dist.new_group([self.peer(int(r)) for r in line])
+                if self.rank in line:
+                    self._axes[name] = ProcessComm(group)
+            assert self._axes[name].rank == self.coords[ax]
+
+    @property
+    def staged_bytes(self) -> int:
+        """Bytes staged through the host by the grid's own collectives and
+        by its axes' exchanges; setting it sets the grid's count and zeroes
+        the axes'."""
+        return self._staged + sum(c.staged_bytes for c in self._axes.values())
+
+    @staged_bytes.setter
+    def staged_bytes(self, value: int) -> None:
+        self._staged = value
+        for c in self._axes.values():
+            c.staged_bytes = 0
+
+    def axis(self, name: str) -> ProcessComm:
+        return self._axes[name]
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    def coord(self, name: str) -> int:
+        return self.coords[self.axis_names.index(name)]
+
+    def coords_of(self, rank: int) -> tuple:
+        """The grid coordinates of ``rank`` of the group."""
+        return tuple(int(c) for c in np.unravel_index(rank, self.shape))
+
+    def __repr__(self):
+        return (f"ProcessGrid(rank={self.rank}, shape={self.shape}, "
+                f"axes={self.axis_names}, backend={self.backend!r})")
 
 
 def dot(comm: Comm, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,10 @@ Trilinos runs one MPI process a rank:
   ``fn(comm, device, *args)`` in every rank and gathers what each returns.
   It joins with a timeout: a rank that hangs (a collective its peers never
   enter) or fails stops every rank, and the launcher raises;
+* :func:`make_mesh2` lays a rank's group out as a two-axis
+  :class:`~.comm.ProcessGrid` (outer-major, as the JAX package's two-level
+  mesh), which every driver below takes where it takes a comm;
+  :func:`solve_axes` names the axes a solve's rows run over;
 * :func:`dist_spmv`, :func:`dist_spmv_t`, :func:`dist_solve`,
   :func:`dist_lsqr` and :func:`dist_sstep_gmres` run inside a rank on that
   rank's padded local vector, with any solver of
@@ -51,7 +55,7 @@ import torch.distributed as dist
 from ..device import resolve_device, torch_dtype
 from ..ops.formats import CsrHost, EllMatrix
 from ..solvers.base import SolveResult
-from .comm import Comm, ProcessComm
+from .comm import Comm, ProcessComm, ProcessGrid
 from .distmatrix import (DistMatrix, DistStencil, HaloPlan, LocalStencil,
                          _move, _tensor, apply_local, apply_local_stencil,
                          apply_local_transpose)
@@ -210,6 +214,28 @@ def launch(fn: Callable, n_ranks: int, *args, device=None, backend=None,
             out_q.close()
             out_q.join_thread()
     return [results[r] for r in range(n_ranks)]
+
+
+AXIS = "rows"
+
+
+def solve_axes(comm: Comm):
+    """The axis name(s) a solve's rows are split over: ``'rows'`` for a flat
+    group, else the grid's axis names, outer-major (the single name of a
+    one-axis grid). Rows run over the grid's flattened ranks, which is the
+    group's rank order, so the drivers need nothing more."""
+    ax = comm.axis_names if isinstance(comm, ProcessGrid) else (AXIS,)
+    return ax[0] if len(ax) == 1 else tuple(ax)
+
+
+def make_mesh2(comm: ProcessComm, p_outer: int, p_inner: int,
+               axes: tuple[str, str] = ("dcn", AXIS)) -> ProcessGrid:
+    """Two-level rank layout: ``p_outer`` groups of ``p_inner`` ranks,
+    outer-major, over ``comm``'s group (which it must cover). Pass it to
+    any ``dist_*`` driver as its comm: a contiguous row Map puts a rank's
+    halo neighbours on its own inner line except at the outer cuts, as the
+    JAX package's (dcn, rows) mesh does."""
+    return ProcessGrid(comm, (p_outer, p_inner), axes)
 
 
 # ---------------------------------------------------------------------------
