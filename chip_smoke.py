@@ -23,7 +23,7 @@ stencil:
 Two run on Galeri 3-D Q1 elasticity through the BDIA kernel:
 
 * CG preconditioned by the block-structured null-space AMG
-  (``elasticity_entry``) on 48³ nodes (331,776 dofs), every level a
+  (``elasticity_entry``) on 40³ nodes (192,000 dofs), every level a
   BdiaMatrix (b = 3, then b = 6);
 * CG in plane layout (``bdia_cg_entry``) on 64×64×48 nodes, 400
   iterations.
@@ -67,6 +67,13 @@ pencil at 256³ and AMG-Block Davidson on it at 64³, and ``eigs_near`` at
 64³, each beside the JAX package's CPU count
 (``scripts/eigen_cpu_counts.py``).
 
+Then the FE discretisation layer: Q1 Poisson on 96³ hexahedra
+(``fem_poisson_entry``: mesh, assembly and Dirichlet condensation on the
+host, K_ii as 27-diagonal DIA through ``dia_kernel``, uncoupled SA-AMG PCG
+at rtol 1e-8 on the assembled operator and on the matrix-free one of
+``fe_apply_local``), the manufactured solution's nodal error, and the
+solution through a VTK file and back.
+
 Then the distributed layer, 4 rank processes on the one card over gloo
 and one rank over nccl: config 4 row-partitioned at 128³, structured
 AMG-PCG on 256³ z-slabs, fused Chebyshev and SA-AMG PCG at 64³, s-step
@@ -80,8 +87,10 @@ grid through Domi's MDMap (``dist_md_entry``: CG with the CA Chebyshev
 sweep, the operator and every stage on the padded block through
 ``stencil_kernel``) at 256³ f32 and 64³ f64 (the JAX package's count), and
 the column-block dense LU (``dist_dense_solve``, n = 8192, f64, 4
-right-hand sides); each rank's kernels held bitwise against their plain
-versions on its data.
+right-hand sides), and the dryrun's rank body (``entry.dryrun_rank``:
+every solver and eigensolver kind of the factories over the ranks, then
+its tiny distributed solves); each rank's kernels held bitwise against
+their plain versions on its data.
 
 Every hierarchy set-up must be served by the native SpGEMM, and every
 factorization by the native library. Each path
@@ -140,7 +149,10 @@ FUSED_CG_X_TOL = 1e-5  # the first 100 iterations of the fused-CG path
 # tolerance, so the CholQR2 bases of the two runs differ by rounding
 SSTEP_TOL = 1e-4  # per-cycle residual norms and x
 FUSED_CG_ITERS = 100
-EL_DIMS = (48, 48, 48)  # elasticity AMG-PCG nodes: 331,776 dofs
+# elasticity AMG-PCG nodes: 192,000 dofs. The block hierarchy's host
+# set-up is the script's largest (94–119 s at 48³ on the card's host), so
+# the grid stays at 40³ to keep the script well inside its time limit
+EL_DIMS = (40, 40, 40)
 PLANE_DIMS = (64, 64, 48)  # plane-layout CG nodes: 589,824 dofs
 PLANE_ITERS = 400
 BDIA2D_DIMS = (1024, 512)  # the JAX bench's bare BDIA apply, b = 2
@@ -347,6 +359,12 @@ DIST_DENSE_NB = 128
 DIST_DENSE_K = 4
 DIST_DENSE_RES_MAX = 1e-12  # ‖a·x − b‖ / ‖b‖
 DIST_DENSE_X_TOL = 1e-10  # max|Δx| / max|x| against torch.linalg.solve
+# the FE discretisation layer (section 7y): Q1 Poisson on FEM_DIMS
+# hexahedra; dia_kernel and fe_apply_local against the plain and the
+# assembled apply on K_ii, and the manufactured solution's max nodal error
+# at h = 1/96 (O(h²): 2.6e-2 at h = 1/8 on the CPU, so about 2e-4 here)
+FEM_CHECK_TOL = 1e-12
+FEM_NODAL_MAX = 1e-3
 
 
 def mass27_stencil():
@@ -675,7 +693,7 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
                                           dist_md_entry,
                                           dist_pipelined_cg_entry,
                                           dist_schwarz_entry,
-                                          dist_sstep_entry)
+                                          dist_sstep_entry, dryrun_rank)
     from trilinos_tpu_torch.galeri import laplace3d
     from trilinos_tpu_torch.galeri.stencils import cross3d_stencil
     from trilinos_tpu_torch.ops.stencil_op import StencilOp
@@ -1008,6 +1026,29 @@ def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
     out["dense"]["x_sum"] = float(x_d.sum())  # the same on every rank
     comm.barrier()
     del a_d, b_d, x_d
+    # the dryrun's rank body (entry.dryrun_rank, the twin of the JAX
+    # package's dryrun_multichip): every solver and eigensolver kind of the
+    # factories over the group (a gate raises on every rank when a kind
+    # fails on any), then its tiny distributed solves
+    comm.barrier()
+    t0 = time.perf_counter()
+    dry = dryrun_rank(comm, device)
+    torch.cuda.synchronize()
+
+    def values(r):
+        v = r[0] if isinstance(r, tuple) else r.eigenvalues
+        return np.atleast_1d(v.cpu().numpy() if torch.is_tensor(v)
+                             else np.asarray(v))
+    out["dryrun"] = dict(
+        seconds=time.perf_counter() - t0,
+        solvers={k: dict(iters=int(r.iters),
+                         converged=bool(torch.as_tensor(r.converged).all()),
+                         resnorm=float(torch.as_tensor(r.resnorm).max()))
+                 for k, r in dry["solver_kinds"].items()},
+        eigen={k: values(r) for k, r in dry["eigen_kinds"].items()},
+        steps={k: int(v.iters) for k, v in dry["steps"].items()
+               if hasattr(v, "iters")})
+    del dry
     out["timing"] = dict(c4=c4_timing, amg=amg_timing, poly=poly_timing,
                          sstep=sstep_timing, eigen=eig_timing, md=md_timing)
     out["backend"] = comm.backend
@@ -2425,7 +2466,7 @@ def main():
     del uref, ures
     uwarm_ms = warm(ustep, ub, ust)
 
-    # -- 7p. null-space uncoupled SA-AMG on the 48³ elasticity matrix ------
+    # -- 7p. null-space uncoupled SA-AMG on the elasticity matrix ----------
     nsamg, ns_setup_s = setup(f"null-space uncoupled {grid_e}", lambda: SaAmg(
         ea, {"dtype": np.float32, "nullspace: vectors": rigid_body_modes(
             *EL_DIMS), "number of equations": 3, "smoother: sweeps": 3,
@@ -3059,6 +3100,135 @@ def main():
     log(f"eigensolver phases: {eig_total_s:.1f} s with their set-up "
         f"({eig_setup_s:.2f} s)")
 
+    # -- 7y. the FE discretisation layer: Q1 Poisson on FEM_DIMS hexahedra --
+    # (fem_poisson_entry: the mesh, assembly and Dirichlet condensation on
+    # the host, K_ii as 27-diagonal DIA, uncoupled SA-AMG PCG at rtol
+    # FEM_RTOL, assembled and matrix-free; then the manufactured solution
+    # and the VTK round trip)
+    from trilinos_tpu_torch.entry import (FEM_DIMS, FEM_RTOL,
+                                          fem_poisson_entry,
+                                          fem_poisson_problem)
+    from trilinos_tpu_torch.io import read_vtk, write_vtk
+    from trilinos_tpu_torch.ops.fe import fe_apply_local
+
+    t_fem = time.perf_counter()
+    fem_mem0 = torch.cuda.memory_allocated()
+    grid_f = "x".join(map(str, FEM_DIMS))
+    fprob = fem_poisson_problem(FEM_DIMS)
+    (fem_step, (fem_b, fem_st)), _ = setup(
+        f"FE Q1 Poisson {grid_f} uncoupled hierarchy",
+        lambda: fem_poisson_entry(FEM_DIMS, problem=fprob))
+    fmf, _ = fem_poisson_entry(FEM_DIMS, amg=fem_step.preconditioner,
+                               matrix_free=True, problem=fprob)
+    fop = fem_step.operator
+    n_f = fop.n_rows
+    fsetup = {**fem_step.setup, **fmf.setup}
+    log(f"FE Q1 Poisson {grid_f}: {len(fprob.mesh.connect)} hexahedra, "
+        f"{len(fprob.coords)} nodes, K_ii {n_f} rows x {len(fop.offsets)} "
+        f"diags ({type(fop).__name__}, {fprob.kii.nnz} nonzeros), levels "
+        f"{[type(lv['a']).__name__ for lv in fem_st['levels']]}; set-up "
+        f"mesh+assembly {fsetup['mesh_assembly']:.2f} s, format "
+        f"{fsetup['format']:.2f} s, AMG {fsetup['amg']:.2f} s, matrix-free "
+        f"elements to the card {fsetup['elements']:.2f} s; device memory "
+        f"held by the path (K_ii, the hierarchy, the element matrices) "
+        f"{(torch.cuda.memory_allocated() - fem_mem0) / 2 ** 30:.3f} GiB")
+    if not (isinstance(fop, DiaMatrix) and len(fop.offsets) == 27
+            and n_f == int(np.prod([d - 1 for d in FEM_DIMS]))):
+        fail(f"FE Q1 K_ii: {type(fop).__name__} with "
+             f"{len(getattr(fop, 'offsets', ()))} diagonals, {n_f} rows")
+    xf = torch.zeros(fop.n_rows_pad, dtype=torch.float64, device="cuda")
+    xf[:n_f] = randn(n_f, torch.float64, seed=90)
+    fem_err = check(f"dia, FE Q1 K_ii {grid_f} ({n_f} rows x 27 diags) f64",
+                    dia_spmv(fop, xf), dia_spmv_plain(fop, xf), FEM_CHECK_TOL)
+    check(f"fe_apply_local K_ii (matrix-free) vs the assembled apply, "
+          f"{grid_f} f64", fmf.apply(xf), dia_spmv_plain(fop, xf),
+          FEM_CHECK_TOL)
+    fcsr = csr_f64(fprob.kii)
+    fem_runs = {}
+    for label, st_ in (("assembled", fem_step), ("matrix-free", fmf)):
+        torch.cuda.reset_peak_memory_stats()
+        in_use = torch.cuda.memory_allocated()
+        fem_res, fem_first, flaunch = drive(st_, (fem_b, fem_st))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_(fem_b, fem_st)
+        torch.cuda.synchronize()
+        fem_warm = (time.perf_counter() - t0) * 1e3
+        fem_true = host_residual(fcsr, fem_res.x, fem_b)
+        frun = dict(iters=int(fem_res.iters),
+                    converged=bool(fem_res.converged), first=fem_first,
+                    warm=fem_warm, true=fem_true, launches=flaunch,
+                    peak=(torch.cuda.max_memory_allocated() - in_use)
+                    / 2 ** 30)
+        fem_runs[label] = frun
+        log(f"FE Q1 Poisson {grid_f} AMG-PCG, {label}: converged "
+            f"{frun['converged']} iters {frun['iters']}; true relative "
+            f"residual {fem_true:.3e} (gate {FEM_RTOL:.0e}); first solve "
+            f"{fem_first:.1f} ms, warm {fem_warm:.2f} ms "
+            f"({fem_warm / max(frun['iters'], 1):.3f} ms/iter); the solves' "
+            f"own peak device memory {frun['peak']:.3f} GiB (above "
+            f"{in_use / 2 ** 30:.2f} GiB in use before); launches {flaunch}")
+        if not (frun["converged"] and fem_true <= FEM_RTOL):
+            fail(f"FE Q1 Poisson {label}: converged {frun['converged']}, "
+                 f"true residual {fem_true:.3e}")
+        if not flaunch.get("dia_spmv"):
+            fail(f"FE Q1 Poisson {label}: dia_kernel was never launched")
+    if abs(fem_runs["assembled"]["iters"]
+           - fem_runs["matrix-free"]["iters"]) > 1:
+        fail(f"FE Q1 Poisson: assembled {fem_runs['assembled']['iters']} "
+             f"and matrix-free {fem_runs['matrix-free']['iters']} "
+             "iterations differ by more than 1")
+    mres, _, _ = drive(fem_step, (fem_step.load, fem_st))
+    fem_nodal_err = float(np.abs(mres.x[:n_f].cpu().numpy()
+                                 - fprob.exact).max())
+    log(f"FE Q1 Poisson {grid_f} manufactured solution sin(πx)sin(πy)sin(πz)"
+        f": {int(mres.iters)} iterations, max nodal error "
+        f"{fem_nodal_err:.3e} at h = 1/{FEM_DIMS[0]} (gate "
+        f"{FEM_NODAL_MAX:.0e})")
+    if not (bool(mres.converged) and fem_nodal_err <= FEM_NODAL_MAX):
+        fail(f"FE Q1 Poisson manufactured solution: error "
+             f"{fem_nodal_err:.3e}")
+    # the element apply alone and the matrix-free K_ii apply, host path
+    # (CUDA events around BATCH calls): the element matrices are read once
+    fconn = torch.from_numpy(fprob.connect).to("cuda")
+    fke = torch.from_numpy(fprob.elements).to("cuda")
+    xn = randn(len(fprob.coords), torch.float64, seed=91)
+    fe_ms = time_ms(lambda: fe_apply_local(fconn, fke, xn))
+    fe_bytes = (fke.numel() + 2 * xn.numel()) * 8 + fconn.numel() * 8
+    fmf_ms = time_ms(lambda: fmf.apply(xf))
+    log(f"fe_apply_local {grid_f} f64 ({fke.shape[0]} elements x 8x8): "
+        f"{fe_ms:.4f} ms (host path), bound {fe_bytes / HBM_BYTES_PER_MS:.4f}"
+        f" ms ({fe_bytes} bytes: element matrices, connectivity, x and y); "
+        f"the matrix-free K_ii apply {fmf_ms:.4f} ms; dia_kernel on K_ii is "
+        "timed with the kernels below")
+    del fconn, fke, xn
+    # the solution as a nodal field (zero on the boundary) through VTK
+    u_nodes = np.zeros(len(fprob.coords))
+    u_nodes[fprob.interior] = mres.x[:n_f].cpu().numpy()
+    with tempfile.TemporaryDirectory() as vdir:
+        vpath = pathlib.Path(vdir) / "fem_poisson.vtk"
+        t0 = time.perf_counter()
+        write_vtk(vpath, fprob.mesh, point_data={"u": u_nodes},
+                  cell_data={"element": np.arange(len(fprob.mesh.connect),
+                                                  dtype=np.float64)})
+        vw_s = time.perf_counter() - t0
+        vbytes = vpath.stat().st_size
+        t0 = time.perf_counter()
+        vtopo, vcoords, vconn, vpd, vcd = read_vtk(vpath)
+        vr_s = time.perf_counter() - t0
+    vtk_ok = (vtopo == "hex8" and np.array_equal(vcoords, fprob.mesh.coords)
+              and np.array_equal(vconn, fprob.mesh.connect)
+              and np.array_equal(vpd["u"], u_nodes)
+              and np.array_equal(vcd["element"],
+                                 np.arange(len(fprob.mesh.connect))))
+    log(f"VTK round trip of the solution on {grid_f}: {vbytes} bytes, "
+        f"write {vw_s:.2f} s, read {vr_s:.2f} s; read back equal: {vtk_ok}")
+    if not vtk_ok:
+        fail("VTK round trip: the file read back differs")
+    del fmf, fcsr, mres, fem_res, u_nodes, vcoords, vconn, vpd, vcd
+    fem_total_s = time.perf_counter() - t_fem
+    log(f"FE phase: {fem_total_s:.1f} s with its set-up")
+
     # -- 7x. the distributed layer: DIST_RANKS rank processes on this card --
     # (gloo; the kernels were built above, before any rank starts, so the
     # ranks load them and never race on the build directory)
@@ -3333,6 +3503,30 @@ def main():
             or not dn["x_rel"] <= DIST_DENSE_X_TOL \
             or len({r["dense"]["x_sum"] for r in ranks}) != 1:
         fail("dist_dense_solve: residual, solution or replication")
+    # (d) the dryrun's rank body: each kind's iterations and convergence
+    # (the gates' rtol 1e-4 within 6 iterations is a coverage gate, not a
+    # convergence one) and each eigensolver kind's eigenvalues, the same on
+    # every rank
+    dr = [r["dryrun"] for r in ranks]
+    for k in sorted(dr[0]["solvers"]):
+        its = [d["solvers"][k]["iters"] for d in dr]
+        rn = [d["solvers"][k]["resnorm"] for d in dr]
+        log(f"dryrun solver kind {k}: iters {its}, converged "
+            f"{[d['solvers'][k]['converged'] for d in dr]}, residual norm "
+            f"{rn[0]!r}")
+        if len(set(its)) != 1 or len(set(rn)) != 1 \
+                or not np.isfinite(rn[0]):
+            fail(f"dryrun solver kind {k}: iterations {its}, residual norms "
+                 f"{rn}")
+    for k in sorted(dr[0]["eigen"]):
+        vals = [d["eigen"][k] for d in dr]
+        log(f"dryrun eigensolver kind {k}: eigenvalues {vals[0]!r}")
+        if not (np.isfinite(vals[0]).all()
+                and all(np.array_equal(v, vals[0]) for v in vals)):
+            fail(f"dryrun eigensolver kind {k}: eigenvalues {vals}")
+    log(f"dryrun rank body ({DIST_RANKS} ranks): "
+        f"{[round(d['seconds'], 2) for d in dr]} s a rank, its distributed "
+        f"solves' iterations {dr[0]['steps']}")
     dist_rows = []
     for key, name, source, replaces, also, label, launch_key in (
             ("c4", "dia_spmv", "dia_spmv.cu", "dia_spmv.py:273",
@@ -3696,6 +3890,26 @@ def main():
             library=lambda: csr_k @ x_k, launches=k_dia,
             per_step=k_dia / max(int(kres_iters), 1),
             err=dslice_err["komplex"]))
+    # the seventeenth slice's shape: the DIA SpMV on the FE Q1 K_ii (27
+    # diagonals, f64); launches from both solve forms (the operator of the
+    # assembled one and level 0 of the V-cycle in both)
+    csr_fe = dia_as_csr(fop)
+    check("sparse CSR library call vs dia (FE Q1 K_ii, f64)", csr_fe @ xf,
+          dia_spmv_plain(fop, xf), 1e-12)
+    fe_dia = sum(r["launches"].get("dia_spmv", 0) for r in fem_runs.values())
+    rows.append(dict(
+        name="dia_spmv", source="dia_spmv.cu", replaces="dia_spmv.py:273",
+        also_replaces="dia_spmv.py:524",
+        shape=f"FE Q1 Poisson K_ii on {grid_f} hexahedra, {fop.n_rows_pad} "
+              f"rows x {len(fop.offsets)} diags f64 (assembled and "
+              f"matrix-free AMG-PCG share the count)",
+        bytes=(len(fop.offsets) + 2) * fop.n_rows_pad * 8,
+        flops=2 * nonzeros(fop), flops_per_ms=F64_FLOPS_PER_MS,
+        kernel=lambda: dia_spmv(fop, xf),
+        plain=lambda: dia_spmv_plain(fop, xf),
+        library=lambda: csr_fe @ xf, launches=fe_dia,
+        per_step=fe_dia / max(sum(r["iters"] for r in fem_runs.values()), 1),
+        err=fem_err))
     # the twelfth slice's shapes (the eigensolvers, f64), each held to its
     # plain version in 7w and each library call to the plain version first
     e1r, e3r = eig_runs["e1"], eig_runs["e3"]

@@ -413,6 +413,17 @@ def test_port_imports_no_jax():
             "trilinos_tpu_torch/parallel/distmatrix.py",
             "trilinos_tpu_torch/parallel/dist_setup.py",
             "trilinos_tpu_torch/parallel/driver.py",
+            "trilinos_tpu_torch/parallel/solve_kinds.py",
+            "trilinos_tpu_torch/fem/__init__.py",
+            "trilinos_tpu_torch/fem/cells.py",
+            "trilinos_tpu_torch/fem/basis.py",
+            "trilinos_tpu_torch/fem/cubature.py",
+            "trilinos_tpu_torch/fem/cell_tools.py",
+            "trilinos_tpu_torch/fem/mesh.py",
+            "trilinos_tpu_torch/fem/assembly.py",
+            "trilinos_tpu_torch/fem/refine.py",
+            "trilinos_tpu_torch/fem/mortar.py",
+            "trilinos_tpu_torch/io/vtk.py",
             "tests/torch_dist_tasks.py"} <= names
     for f in files:
         for mod in _imports(f):

@@ -31,7 +31,11 @@ from trilinos_tpu.parallel import distmatrix as JD
 from trilinos_tpu.parallel import driver as jdrv
 from trilinos_tpu.parallel import mdarray as JMD
 from trilinos_tpu.parallel.comm import AxisComm
+from trilinos_tpu.parallel.solve_kinds import (
+    run_all_eigen_kinds as jrun_all_eigen_kinds,
+    run_all_solver_kinds as jrun_all_solver_kinds)
 from trilinos_tpu.solvers import cg as jcg
+from trilinos_tpu.solvers import factory as jfct
 from trilinos_tpu.solvers import cg_pipeline as jcg_pipeline
 from trilinos_tpu.solvers import cg_single_reduce as jcg_single_reduce
 from trilinos_tpu.solvers import gmres as jgmres
@@ -418,9 +422,44 @@ def jax_schwarz_gmres():
 
 def twins(port, key):
     """Each rank's ``key`` case group from the group of 8 (the md entry's
-    from the group of 4)."""
-    p = 4 if key == "md_entry" else 8
+    and the dryrun's from the group of 4)."""
+    p = 4 if key in ("md_entry", "dryrun") else 8
     return [r[key] for r in port[p]["twins"]]
+
+
+def jax_solver_kinds(kinds):
+    """The JAX package's solver gate on its 4-device mesh
+    (``run_all_solver_kinds(4)``) over ``kinds`` only: its factory table
+    is cut to their names for the call, so that the gate's kinds can be
+    computed in parts by several workers at once. Each kind's iterations,
+    residual norms and unpadded x."""
+    rmap = JD.distribute(jcsr(T.laplace2d(12, 2 * P)), P).row_map
+
+    def unpad(x):
+        x = np.asarray(x)
+        if x.ndim == 1:
+            return rmap.from_padded(x)
+        return np.stack([rmap.from_padded(x[:, j])
+                         for j in range(x.shape[1])], axis=1)
+
+    saved = dict(jfct.ALIASES)
+    jfct.ALIASES.clear()
+    jfct.ALIASES.update({a: k for a, k in saved.items() if k in kinds})
+    try:
+        results = jrun_all_solver_kinds(P)
+    finally:
+        jfct.ALIASES.clear()
+        jfct.ALIASES.update(saved)
+    return {k: dict(iters=int(r.iters), x=unpad(r.x),
+                    resnorm=np.asarray(r.resnorm))
+            for k, r in results.items()}
+
+
+def jax_eigen_kinds():
+    """The JAX package's eigensolver gate on its 4-device mesh
+    (``run_all_eigen_kinds(4)``): each kind's eigenvalues."""
+    return {k: np.asarray(r[0] if isinstance(r, tuple) else r.eigenvalues)
+            for k, r in jrun_all_eigen_kinds(P).items()}
 
 
 def jax_grid():

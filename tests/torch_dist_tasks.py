@@ -27,7 +27,7 @@ from trilinos_tpu_torch.entry import (dist_amg_entry, dist_eigen_entry,
                                       dist_md_entry,
                                       dist_pipelined_cg_entry,
                                       dist_schwarz_entry, dist_sstep_entry,
-                                      eigen_entry, sstep_entry)
+                                      dryrun_rank, eigen_entry, sstep_entry)
 from trilinos_tpu_torch.galeri import laplace2d, laplace3d, recirc2d
 from trilinos_tpu_torch.io import read_sparse_distributed
 from trilinos_tpu_torch.ops.formats import CsrHost
@@ -129,11 +129,13 @@ def ranks_spmv(comm, device, mtx_path=None):
     # LOBPCG over the group (the JAX package runs it at 4 and 8 shards)
     out["eigen/lobpcg"] = _eigen("lobpcg", comm, device)
     # the twins of the JAX package's two-level mesh, mdarray and Pliris
-    # tests on 8 ranks, and the md entry on a (2, 2, 1) grid of 4
+    # tests on 8 ranks; on 4, the md entry on a (2, 2, 1) grid and the
+    # dryrun's rank body (every solver and eigensolver kind first)
     out["twins"] = ({"grid": grid_cases(comm, device),
                      "md": md_cases(comm, device),
                      "pliris": pliris_cases(comm, device)} if p == 8
-                    else {"md_entry": md_entry_case(comm, device)})
+                    else {"md_entry": md_entry_case(comm, device),
+                          "dryrun": dryrun_rank(comm, device)})
     if mtx_path is not None:
         dmr = read_sparse_distributed(mtx_path, p)
         alr = dmr.local(me, device)

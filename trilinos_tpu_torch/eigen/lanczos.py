@@ -41,10 +41,15 @@ def lanczos_eigs(op: Operator, v0: torch.Tensor, nev: int,
                  m: int | None = None, *, which: str = "LM",
                  comm: Comm | None = None):
     """Symmetric eigenpairs from a fully reorthogonalized Lanczos run of
-    length m (default min(4·nev + 20, n − 1)): eigh of the symmetrized
+    length m (default min(4·nev + 20, n − 1), n the global row count: over
+    a group of ranks the sum of their rows): eigh of the symmetrized
     projected matrix. Returns (eigenvalues (nev,), eigenvectors (n, nev))."""
     comm = comm or SerialComm()
-    m = m or min(4 * nev + 20, v0.shape[0] - 1)
+    n = v0.shape[0]
+    if comm.size > 1:
+        n = int(comm.psum(torch.tensor(n, dtype=torch.int64,
+                                       device=v0.device)))
+    m = m or min(4 * nev + 20, n - 1)
     v, h = arnoldi(op, v0, m, comm=comm)
     t = (h[:m, :] + h[:m, :].T) / 2
     theta, y = torch.linalg.eigh(t)

@@ -177,6 +177,41 @@ on the seed-0 normals over the global field. ``step(b)`` on the rank's
 block, with ``step.grid``, ``step.mdmap`` and the block apply as
 ``step.local_fn``.
 
+``fem_poisson_entry()``: the FE discretisation layer's path, Q1 Poisson on
+the unit cube. ``fem_poisson_problem(dims)`` builds
+``structured_hex_mesh(*dims)`` (96³ elements by default: 884,736
+hexahedra, 912,673 nodes) and ``poisson_dirichlet`` with the manufactured
+source f = 3π² sin(πx) sin(πy) sin(πz), whose solution is
+u = sin(πx) sin(πy) sin(πz): K_ii over the 95³ = 857,375 interior nodes,
+27 diagonals in lexicographic order, so ``choose_format`` stores it as
+DIA. ``SaAmg`` with uncoupled aggregation (float64 by default) takes that
+DIA matrix as its fine level; CG at rtol ``FEM_RTOL`` is preconditioned
+by its V-cycle. The operator is the DIA matrix (``dia_kernel`` on the
+card), or with ``matrix_free=True`` the element stiffness matrices on the
+device applied by ``ops.fe.fe_apply_local`` to the interior vector
+embedded in all nodes with zeros on the boundary, its interior rows taken:
+K_ii·x without the assembled matrix. ``step(b, state)`` as ``entry()``, on
+a seed-0 normal right-hand side; ``step.load`` is the manufactured load
+(padded) and ``step.problem`` the host problem, whose ``exact`` is u at the
+interior nodes; ``step.setup`` holds the set-up seconds (mesh and
+assembly, the fine level's format, the rest of the hierarchy, the
+matrix-free elements). ``amg=`` and ``problem=`` hand in an earlier call's
+hierarchy and problem, so both forms can share them.
+
+``dryrun_multichip(n_ranks)``: the twin of ``__graft_entry__.py``'s
+``dryrun_multichip``, a coverage gate at tiny shapes over ``n_ranks``
+rank processes (``parallel.driver.launch``). Its rank body,
+``dryrun_rank(comm, device)``, runs what the JAX function runs, in its
+order: every solver kind and every eigensolver kind
+(``parallel/solve_kinds.py``), pipelined CG with Jacobi, CG with
+``dist_amg`` and ``dist_amg_blocks``, CG with ``dist_cheb_fused`` and
+``dist_amg_structured`` on the z-slab stencil, ``dist_sstep_gmres``,
+``dist_spmv_t`` and ``dist_lsqr``, LOBPCG through ``dist_eigsolve``
+standard and as a pencil, ``dist_dense_solve``, and for an even rank
+count CG and GMRES on a ``make_mesh2`` grid, ``md_map_apply`` of a
+9-point stencil and ``md_solve`` on a (2, p/2) ``ProcessGrid``. It raises
+if any of them fails and returns what each produced.
+
 Every entry takes ``device`` (``None`` means the CUDA card and raises
 without one); the hierarchy paths also take an already-built hierarchy as
 ``amg=`` so one hierarchy can serve several paths, and their grid, dtype
@@ -189,16 +224,19 @@ import dataclasses
 import gzip
 import pathlib
 import tempfile
+import time
 
 import numpy as np
 import torch
 
 from .device import resolve_device, torch_dtype
 from .eigen import EigenProblem, create_eigensolver
+from .fem import Mesh, poisson_dirichlet, structured_hex_mesh
 from .galeri import (elasticity3d, laplace2d, laplace3d, recirc2d,
                      rigid_body_modes)
 from .io import read_hb, read_sparse, write_sparse
 from .ops.bdia_spmv import bdia_plane_solver_op
+from .ops.fe import fe_apply_local
 from .ops.formats import (CsrHost, choose_format, csr_to_bdia, csr_to_bsr,
                           csr_to_ell)
 from .ops.komplex import solve_complex
@@ -701,3 +739,225 @@ def eigen_entry(name, params=None, dims=(16, 16, 16), nev=4,
 
     step.manager, step.operator = mgr, op
     return step, (torch.from_numpy(host).to(dev, dt), st)
+
+
+FEM_DIMS = (96, 96, 96)  # Q1 hexahedra of fem_poisson_entry
+FEM_RTOL = 1e-8
+FEM_MAXITER = 1000
+
+
+def fem_source(x):
+    """f = 3π² sin(πx) sin(πy) sin(πz) at points (..., 3): the load whose
+    Dirichlet solution on the unit cube is sin(πx) sin(πy) sin(πz)."""
+    s = np.sin(np.pi * x)
+    return 3.0 * np.pi ** 2 * s[..., 0] * s[..., 1] * s[..., 2]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FemPoisson:
+    """The host side of ``fem_poisson_entry``: the mesh, K_ii, the
+    manufactured load on the interior, the interior node ids, every node's
+    coordinates, the element stiffness matrices with their node
+    connectivity, and the seconds the mesh and assembly took."""
+
+    mesh: Mesh
+    kii: CsrHost
+    load: np.ndarray
+    interior: np.ndarray
+    coords: np.ndarray
+    elements: np.ndarray
+    connect: np.ndarray
+    seconds: float
+
+    @property
+    def exact(self) -> np.ndarray:
+        """The manufactured solution at the interior nodes."""
+        return np.prod(np.sin(np.pi * self.coords[self.interior]), axis=1)
+
+
+def fem_poisson_problem(dims=FEM_DIMS) -> FemPoisson:
+    t0 = time.perf_counter()
+    mesh = structured_hex_mesh(*dims)
+    kii, load, interior, xy, ke, conn = poisson_dirichlet(
+        mesh, fem_source, elements=True)
+    return FemPoisson(mesh, kii, load, interior, xy, ke, conn,
+                      time.perf_counter() - t0)
+
+
+def _synced_seconds(t0, dev) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def fem_poisson_entry(dims=FEM_DIMS, dtype=np.float64, device=None,
+                      amg=None, matrix_free=False, problem=None):
+    prob = problem or fem_poisson_problem(dims)
+    setup = {"mesh_assembly": prob.seconds}
+    if amg is None:
+        dev = resolve_device(device)
+        t0 = time.perf_counter()
+        fine = choose_format(prob.kii, dtype=dtype, device=dev)
+        setup["format"] = _synced_seconds(t0, dev)
+        t0 = time.perf_counter()
+        amg = SaAmg(prob.kii, {"dtype": dtype,
+                               "aggregation: type": "uncoupled",
+                               "fine: matrix-free operator": fine},
+                    device=dev).compute()
+        setup["amg"] = _synced_seconds(t0, dev)
+    elif amg.fine_op.shape != prob.kii.shape:
+        raise ValueError(f"the hierarchy's fine level is "
+                         f"{amg.fine_op.shape}, K_ii {prob.kii.shape}")
+    fine, dev, dt = amg.fine_op, amg.device, amg.dtype
+    n = fine.n_rows
+    if matrix_free:
+        t0 = time.perf_counter()
+        ke = torch.from_numpy(prob.elements).to(dev, dt)
+        conn = torch.from_numpy(prob.connect).to(dev)
+        inner = torch.from_numpy(prob.interior).to(dev)
+        n_nodes = len(prob.coords)
+        setup["elements"] = _synced_seconds(t0, dev)
+
+        def apply(v):
+            # K_ii·v: v on the interior nodes, zero on the boundary
+            full = v.new_zeros((n_nodes,) + v.shape[1:])
+            full[inner] = v[:n]
+            y = torch.zeros_like(v)
+            y[:n] = fe_apply_local(conn, ke, full)[inner]
+            return y
+    else:
+        def apply(v):
+            return spmv(fine, v)
+
+    def step(b_vec: torch.Tensor, st: dict):
+        return cg(apply, b_vec, prec=lambda v: amg.apply_state(st, v),
+                  rtol=FEM_RTOL, maxiter=FEM_MAXITER)
+
+    load = np.zeros(fine.n_rows_pad)
+    load[:n] = prob.load
+    step.problem, step.preconditioner, step.operator = prob, amg, fine
+    step.apply, step.setup = apply, setup
+    step.load = torch.from_numpy(load).to(dev, dt)
+    return step, (_rhs(fine, dev, dt), amg.state())
+
+
+def _dryrun_check(label, x, want_shape) -> None:
+    if tuple(x.shape) != tuple(want_shape):
+        raise AssertionError(f"{label}: shape {tuple(x.shape)}, expected "
+                             f"{tuple(want_shape)}")
+
+
+def _nine_point(p):
+    return (8.0 * p[1:-1, 1:-1] - p[:-2, 1:-1] - p[2:, 1:-1]
+            - p[1:-1, :-2] - p[1:-1, 2:] - p[:-2, :-2] - p[2:, 2:]
+            - p[:-2, 2:] - p[2:, :-2])
+
+
+def _five_point(p):
+    return (4.0 * p[1:-1, 1:-1] - p[:-2, 1:-1] - p[2:, 1:-1]
+            - p[1:-1, :-2] - p[1:-1, 2:])
+
+
+def dryrun_rank(comm, device=None) -> dict:
+    from .eigen import lobpcg
+    from .parallel import distmatrix as D
+    from .parallel import driver as drv
+    from .parallel.comm import ProcessGrid
+    from .parallel.dist_setup import split_rows
+    from .parallel.mdarray import MDMap, md_map_apply, md_solve
+    from .parallel.solve_kinds import (run_all_eigen_kinds,
+                                       run_all_solver_kinds)
+    from .solvers import dist_dense_solve
+
+    dev = resolve_device(device)
+    p, me = comm.size, comm.index()
+    out = {"solver_kinds": run_all_solver_kinds(comm, dev),
+           "eigen_kinds": run_all_eigen_kinds(comm, dev)}
+    steps = out["steps"] = {}
+
+    def solve(label, res, like):
+        _dryrun_check(label, res.x, like.shape)
+        steps[label] = res
+
+    a = laplace2d(16, 2 * p, dtype=np.float32)
+    dm = D.distribute(a, p)
+    al = dm.local(me, dev)
+    prec = drv.dist_jacobi(a, dm.row_map, dtype=np.float32)
+    bg = _local_rhs(dm.row_map, 0, me, dev, torch.float32)
+    solve("cg_pipeline", drv.dist_solve(cg_pipeline, al, bg, comm=comm,
+                                        prec=prec, rtol=1e-4, maxiter=5), bg)
+    amg = drv.dist_amg(a, dm.row_map, coarse_max=16, dtype=np.float32)
+    solve("amg", drv.dist_solve(cg, al, bg, comm=comm, prec=amg, rtol=1e-4,
+                                maxiter=5), bg)
+    # the distributed set-up: no global matrix is assembled
+    amg_b = drv.dist_amg_blocks(split_rows(a, dm.row_map), dm.row_map,
+                                coarse_max=16, dtype=np.float32)
+    solve("amg_blocks", drv.dist_solve(cg, al, bg, comm=comm, prec=amg_b,
+                                       rtol=1e-4, maxiter=5), bg)
+
+    # the z-slab stencil: CA fused Chebyshev, then structured AMG
+    ops = laplace3d(16, 8, 8 * p, dtype=np.float32, fmt="stencil")
+    sl = D.distribute_stencil(ops, p).local(me, dev)
+    cheb = drv.dist_cheb_fused(ops, p, degree=3, lmax=1.9, lmin=0.06,
+                               device=dev)
+    bs = _local_rhs(sl.row_map, 3, me, dev, torch.float32)
+    solve("cheb_fused", drv.dist_solve(cg, sl, bs, comm=comm, prec=cheb,
+                                       rtol=1e-4, maxiter=5), bs)
+    samg = drv.dist_amg_structured(ops, p, dtype=np.float32, device=dev)
+    solve("amg_structured", drv.dist_solve(cg, sl, bs, comm=comm, prec=samg,
+                                           rtol=1e-4, maxiter=5), bs)
+    solve("sstep", drv.dist_sstep_gmres(ops, bs, comm=comm, s=2, t_blocks=2,
+                                        max_restarts=1, rtol=1e-4), bs)
+
+    # the transpose apply, LSQR, and LOBPCG standard and as a pencil
+    steps["spmv_t"] = drv.dist_spmv_t(al, bg, comm)
+    _dryrun_check("spmv_t", steps["spmv_t"], bg.shape)
+    solve("lsqr", drv.dist_lsqr(al, bg, comm=comm, rtol=1e-4, maxiter=5), bg)
+    steps["lobpcg"] = drv.dist_eigsolve(lobpcg, al, 2, comm=comm,
+                                        which="LM", tol=1e-3, maxiter=5,
+                                        dtype=np.float32)
+    steps["lobpcg+M"] = drv.dist_eigsolve(lobpcg, al, 2, comm=comm,
+                                          mass_matrix=al, which="SM",
+                                          tol=1e-3, maxiter=5,
+                                          dtype=np.float32)
+
+    # the column-block dense LU
+    nd = 8 * p
+    ad = (np.random.default_rng(2).standard_normal((nd, nd))
+          + nd * np.eye(nd)).astype(np.float32)
+    steps["dense"] = dist_dense_solve(comm, ad, np.ones(nd, np.float32),
+                                      nb=8, device=dev)
+    _dryrun_check("dense", steps["dense"], (nd,))
+
+    if p % 2 == 0:
+        # the two-level (dcn, rows) grid: rows over both axes
+        mesh2 = drv.make_mesh2(comm, 2, p // 2)
+        solve("grid_cg", drv.dist_solve(cg, al, bg, comm=mesh2, prec=prec,
+                                        rtol=1e-4, maxiter=5), bg)
+        solve("grid_gmres", drv.dist_solve(gmres, al, bg, comm=mesh2,
+                                           rtol=1e-4, maxiter=5, restart=4),
+              bg)
+        # Domi's MDMap on a (2, p/2) process grid: the 9-point stencil's
+        # halo exchange (corners included), then CG through md_solve
+        grid = ProcessGrid(comm, (2, p // 2), ("mx", "my"))
+        shape = (8, 4 * p)
+        md = MDMap(shape, ("mx", "my"), halo=(1, 1), periodic=(True, True))
+        u = md.local_block(np.random.default_rng(1).standard_normal(
+            shape).astype(np.float32), grid, dev)
+        steps["md_apply"] = md_map_apply(md, grid, _nine_point)(u)
+        _dryrun_check("md_apply", steps["md_apply"], u.shape)
+        md_d = MDMap(shape, ("mx", "my"), halo=(1, 1))
+        bmd = md_d.local_block(np.random.default_rng(4).standard_normal(
+            shape).astype(np.float32), grid, dev)
+        solve("md_cg", md_solve(cg, md_d, grid, _five_point, bmd, rtol=1e-4,
+                                maxiter=5), bmd)
+    return out
+
+
+def dryrun_multichip(n_ranks: int, device=None, **launch_kw) -> list:
+    """``dryrun_rank`` in ``n_ranks`` rank processes; other keywords go to
+    ``parallel.driver.launch``. Returns each rank's result in rank
+    order."""
+    from .parallel.driver import launch
+
+    return launch(dryrun_rank, n_ranks, device=device, **launch_kw)

@@ -107,6 +107,29 @@ class CsrHost:
         np.add.at(out, (self._rows(), self.cols), self.vals)
         return out
 
+    def matvec_host(self, x: np.ndarray) -> np.ndarray:
+        """Host-side y = A x (set-up and verification paths)."""
+        y = np.zeros(self.shape[0],
+                     dtype=np.result_type(self.vals, np.asarray(x)))
+        np.add.at(y, self._rows(), self.vals * np.asarray(x)[self.cols])
+        return y
+
+    def submatrix(self, row_ids: np.ndarray,
+                  col_ids: np.ndarray) -> "CsrHost":
+        """A[row_ids][:, col_ids] (host set-up, e.g. the condensation of
+        boundary dofs)."""
+        row_ids = np.asarray(row_ids)
+        col_ids = np.asarray(col_ids)
+        col_pos = np.full(self.shape[1], -1, dtype=np.int64)
+        col_pos[col_ids] = np.arange(len(col_ids))
+        rows_full = self._rows()
+        row_pos = np.full(self.shape[0], -1, dtype=np.int64)
+        row_pos[row_ids] = np.arange(len(row_ids))
+        keep = (row_pos[rows_full] >= 0) & (col_pos[self.cols] >= 0)
+        return CsrHost.from_coo(row_pos[rows_full[keep]],
+                                col_pos[self.cols[keep]], self.vals[keep],
+                                (len(row_ids), len(col_ids)))
+
     def transpose(self) -> "CsrHost":
         m, n = self.shape
         return CsrHost.from_coo(self.cols.astype(np.int64), self._rows(),

@@ -70,24 +70,34 @@ class GmresPoly(Preconditioner):
                                 self.degree, r)
 
 
-def gmres_poly_setup(op, v0: torch.Tensor, degree: int):
+def gmres_poly_setup(op, v0: torch.Tensor, degree: int, comm=None):
     """Arnoldi with CGS2 from ``v0`` on any operator (generateArnoldiPoly):
     returns (H, y, deg), H and y host float64, deg the degree reached
-    (smaller on a breakdown, ‖w‖ < 1e-14). Three host reads a step."""
+    (smaller on a breakdown, ‖w‖ < 1e-14). Three host reads a step. With
+    ``comm`` the vectors are a rank's rows and every dot and norm is
+    reduced over its group, so each rank builds the same polynomial."""
+    def norm(v):
+        if comm is None:
+            return torch.linalg.vector_norm(v)
+        return torch.sqrt(comm.psum(v @ v))
+
+    def dots(vj, w):
+        return vj @ w if comm is None else comm.psum(vj @ w)
+
     d = degree
     basis = torch.zeros((d + 1, v0.shape[0]), dtype=v0.dtype,
                         device=v0.device)
-    basis[0] = v0 / torch.linalg.vector_norm(v0)
+    basis[0] = v0 / norm(v0)
     h = np.zeros((d + 1, d))
     deg = d
     for j in range(d):
         w = op(basis[j])
         vj = basis[:j + 1]
         for _ in range(2):  # CGS2: two classical passes
-            c = vj @ w
+            c = dots(vj, w)
             w = w - vj.T @ c
             h[:j + 1, j] += c.cpu().numpy()
-        hj1 = float(torch.linalg.vector_norm(w))
+        hj1 = float(norm(w))
         h[j + 1, j] = hj1
         if hj1 < 1e-14:
             deg = j + 1

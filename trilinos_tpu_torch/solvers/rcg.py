@@ -44,8 +44,8 @@ def _recycle_from(op, comm, u) -> CgRecycleSpace:
 def _build_recycle(op, comm, v0, k: int) -> CgRecycleSpace:
     from ..eigen.lanczos import lanczos_eigs
 
-    _, u = lanczos_eigs(op, v0, nev=k, m=min(4 * k + 20, v0.shape[0] - 1),
-                        which="SA", comm=comm)
+    # Lanczos's default length, min(4k + 20, n − 1), over the global rows
+    _, u = lanczos_eigs(op, v0, nev=k, which="SA", comm=comm)
     return _recycle_from(op, comm, u.contiguous())
 
 
