@@ -23,7 +23,7 @@ stencil:
 Two run on Galeri 3-D Q1 elasticity through the BDIA kernel:
 
 * CG preconditioned by the block-structured null-space AMG
-  (``elasticity_entry``) on 40³ nodes (192,000 dofs), every level a
+  (``elasticity_entry``) on 32³ nodes (98,304 dofs), every level a
   BdiaMatrix (b = 3, then b = 6);
 * CG in plane layout (``bdia_cg_entry``) on 64×64×48 nodes, 400
   iterations.
@@ -67,7 +67,7 @@ pencil at 256³ and AMG-Block Davidson on it at 64³, and ``eigs_near`` at
 64³, each beside the JAX package's CPU count
 (``scripts/eigen_cpu_counts.py``).
 
-Then the FE discretisation layer: Q1 Poisson on 96³ hexahedra
+Then the FE discretisation layer: Q1 Poisson on 80³ hexahedra
 (``fem_poisson_entry``: mesh, assembly and Dirichlet condensation on the
 host, K_ii as 27-diagonal DIA through ``dia_kernel``, uncoupled SA-AMG PCG
 at rtol 1e-8 on the assembled operator and on the matrix-free one of
@@ -92,6 +92,22 @@ every solver and eigensolver kind of the factories over the ranks, then
 its tiny distributed solves); each rank's kernels held bitwise against
 their plain versions on its data.
 
+Then the application layer (``application_phase``): the kernel wrappers'
+derivative rules at the kernels' shapes (the 256³ f32 and 64³ f64
+stencil, the DIA level 1 at k = 1 and 4, the elasticity BDIA level 0:
+JVP tangents against the wrapper on the tangent and the plain version's
+JVP, VJP cotangents against the transpose apply, the forward-over-reverse
+Hessian-vector product of ½xᵀAx against A v, two launches a JVP); JFNK
+Newton on 3-D Bratu at 256³ f32 (``bratu_entry`` on the CG path's
+hierarchy, ``stencil_kernel`` in every residual and Jacobian action,
+``dia_kernel`` in the V-cycle) through the kernels and through the plain
+versions; the nonlinear PDE example (``nonlinear_pde_entry``, 24², f32
+and f64) against the CPU's counts; Phalanx's JFNK nonlinear Poisson on
+512² Q1 quadrilaterals, f64, AMG-preconditioned (``phalanx_entry``);
+Piro's steady solve with adjoint sensitivities against a central
+difference and a transient at 32³ f64; ROL's trust-region Newton-CG on a
+32³ quadratic and L-BFGS on Rosenbrock at n = 2²⁰.
+
 Every hierarchy set-up must be served by the native SpGEMM, and every
 factorization by the native library. Each path
 is driven with the launch counts set to 0 just before it and read just
@@ -107,11 +123,13 @@ import collections
 import contextlib
 import dataclasses
 import json
+import multiprocessing
 import pathlib
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -149,10 +167,11 @@ FUSED_CG_X_TOL = 1e-5  # the first 100 iterations of the fused-CG path
 # tolerance, so the CholQR2 bases of the two runs differ by rounding
 SSTEP_TOL = 1e-4  # per-cycle residual norms and x
 FUSED_CG_ITERS = 100
-# elasticity AMG-PCG nodes: 192,000 dofs. The block hierarchy's host
-# set-up is the script's largest (94–119 s at 48³ on the card's host), so
-# the grid stays at 40³ to keep the script well inside its time limit
-EL_DIMS = (40, 40, 40)
+# elasticity AMG-PCG nodes: 98,304 dofs. The block hierarchy's host set-up
+# is the script's largest (94–119 s at 48³, 53–60 s at 40³ on the card's
+# host), and a slow host took the whole script to 1344.3 s with the
+# application phase, so the grid is 32³ to keep it inside its time limit
+EL_DIMS = (32, 32, 32)
 PLANE_DIMS = (64, 64, 48)  # plane-layout CG nodes: 589,824 dofs
 PLANE_ITERS = 400
 BDIA2D_DIMS = (1024, 512)  # the JAX bench's bare BDIA apply, b = 2
@@ -359,12 +378,56 @@ DIST_DENSE_NB = 128
 DIST_DENSE_K = 4
 DIST_DENSE_RES_MAX = 1e-12  # ‖a·x − b‖ / ‖b‖
 DIST_DENSE_X_TOL = 1e-10  # max|Δx| / max|x| against torch.linalg.solve
-# the FE discretisation layer (section 7y): Q1 Poisson on FEM_DIMS
+# the FE discretisation layer (section 7y): Q1 Poisson on FEM_GRID
 # hexahedra; dia_kernel and fe_apply_local against the plain and the
 # assembled apply on K_ii, and the manufactured solution's max nodal error
-# at h = 1/96 (O(h²): 2.6e-2 at h = 1/8 on the CPU, so about 2e-4 here)
+# at h = 1/80 (O(h²): 2.6e-2 at h = 1/8 on the CPU, 1.785e-4 at h = 1/96
+# on the card, so about 2.6e-4 here). At 96³ (entry.FEM_DIMS, 857,375
+# rows) the host mesh and assembly took 31.6–41.8 s beside the H100, so
+# the grid is 80³ (493,039 rows) for the script's time limit
+FEM_GRID = (80, 80, 80)
 FEM_CHECK_TOL = 1e-12
 FEM_NODAL_MAX = 1e-3
+# the application layer (section 7z): the kernel wrappers' derivative
+# rules at the paths' shapes, JFNK Bratu on the 256³ stencil, the nonlinear
+# PDE example, Phalanx, Piro and ROL
+RULE_F64_DIMS = (64, 64, 64)  # the f64 stencil of the rule gates
+RULE_BDIA_TOL = 1e-5  # BDIA kernel against its plain version (not bitwise)
+HVP_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # ½(A + Aᵀ)v vs A v
+# F(u) = A u − λh²e^u cancels stencil terms of size |u| ≈ 0.27 to a residual
+# of size λh² = 6.1e-5 at 256³, so float32 holds F to about 1e-3 of ‖F(0)‖
+# (the floor read 8.4e-6, 3.2e-5, 1.2e-4 of ‖F(0)‖ at 32³, 64³, 96³ on the
+# CPU, growing as (n+1)²): Newton's target sits above it
+BRATU_RTOL = 3e-3
+BRATU_X_TOL = 1e-6  # kernel and plain runs' x, max|Δx| / max|x|
+NLPDE_NX = 24  # examples/nonlinear_pde.py's grid, float32 as the example
+# the port's CPU counts of nonlinear_pde_entry(24) in float32
+# (scripts/nonlinear_cpu_counts.py). The example's adaptive march controls
+# its local error at rtol 1e-5 (a scale of about 1e-6 on u ≈ 0.08) while
+# each stage's Newton stops at ‖R‖ ≤ 1e-5, so the error estimate carries
+# where Newton happened to stop, and a 1-ulp change in exp or in a GMRES
+# dot moves the step sequence: on the CPU the JAX package's float32 march
+# takes 347 steps (6 rejected, 198 Newton iterations) against the port's
+# 328 (4, 177), and on the card the port's float64 march took 258 steps
+# (118 Newton) against its CPU's 268 (128) on an H100. So
+# the steady solve and the continuation are held to the CPU's counts, and
+# the march to NLPDE_MARCH_TOL of its steps and Newton iterations and
+# NLPDE_MARCH_REJECTED of its rejections, with the settling check
+NLPDE_CPU = {"newton_iters": 2, "newton_inner": 50, "cont_points": 11,
+             "cont_failed": 0, "cont_newton": 16, "march_steps": 328,
+             "march_rejected": 4, "march_newton": 177}
+NLPDE_MARCH_TOL = 0.1  # relative, on the march's steps and Newton iterations
+NLPDE_MARCH_REJECTED = 2  # ± on its rejected steps
+PHALANX_N = 512  # Q1 quadrilaterals a side: 263,169 dofs, f64
+PHALANX_FTOL = 1e-8  # ‖F(x)‖ of the Phalanx JFNK solve
+PIRO_DIMS = (32, 32, 32)  # the adjoint GMRES takes no preconditioner
+PIRO_P = (3.0, 1.0)  # (λ, source amplitude)
+PIRO_FD_RTOL = 1e-5  # dg/dp against a central finite difference
+PIRO_FD_STEP = 1e-4
+OPT_DIMS = (32, 32, 32)  # trust-region Newton on ½xᵀAx − bᵀx, f64
+OPT_TRUE_MAX = 1e-7  # its true relative residual ‖b − A x‖ / ‖b‖
+LBFGS_N = 2 ** 20  # L-BFGS on the ROL zoo's Rosenbrock, f64
+LBFGS_CPU = (35, 64)  # iterations, line-search evaluations: the CPU port's
 
 
 def mass27_stencil():
@@ -674,6 +737,419 @@ def kernel_timing(kernel, plain, library, shape, nbytes, flops):
                 ms=graph_ms(kernel), host_path_ms=time_ms(kernel),
                 plain_ms=graph_ms(plain),
                 library_ms=graph_ms(library) if library else None)
+
+
+def application_phase(ctx):
+    """Section 7z, the application layer (NOX/LOCA/Tempus, Phalanx, Piro,
+    ROL). ``ctx`` holds what the earlier sections built and ``main``'s
+    helpers: ``fine`` (the 256³ f32 stencil), ``amg`` (its Jacobi
+    hierarchy), ``a1`` (the hierarchy's DIA level 1), ``a0`` (elasticity
+    BDIA level 0), ``setup``, ``drive`` and ``plain_run``. Fails on the
+    first gate that does not hold; returns what section 8's kernel rows
+    take from it."""
+    from trilinos_tpu_torch import piro
+    from trilinos_tpu_torch.entry import (BRATU_LAMBDA, bratu_entry,
+                                          nonlinear_pde_entry, phalanx_amg,
+                                          phalanx_entry)
+    from trilinos_tpu_torch.galeri import laplace3d
+    from trilinos_tpu_torch.ops import (bdia_spmv, bdia_spmv_plain,
+                                        bdia_spmv_t_plain, dia_spmm,
+                                        dia_spmv, dia_spmv_plain,
+                                        dia_spmv_t_plain, stencil_spmv,
+                                        stencil_spmv_plain)
+    from trilinos_tpu_torch.ops.autodiff import LinearApply
+    from trilinos_tpu_torch.optim import lbfgs, trust_region_newton
+    from trilinos_tpu_torch.precond import SaAmg
+
+    fine, amg, a1, a0 = ctx["fine"], ctx["amg"], ctx["a1"], ctx["a0"]
+    drive, plain_run = ctx["drive"], ctx["plain_run"]
+    t_app = time.perf_counter()
+    out = {"err": {}}
+
+    def mx(t):
+        return float(t.double().abs().max())
+
+    def warm_ms(fn, *args):
+        """Wall ms of a second, warm run of fn(*args)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # -- the derivative rules at the kernels' own shapes -------------------
+    fine64 = laplace3d(*RULE_F64_DIMS, dtype=np.float64, fmt="stencil")
+
+    def vecs(a, shape, dt, seed):
+        """x, v, w: seeded normals, zero in the pad rows."""
+        n = a.n_rows
+        vs = []
+        for i in range(3):
+            t = torch.zeros(shape, dtype=dt, device="cuda")
+            t[:n] = randn((n,) + tuple(shape[1:]), dt, seed + i)
+            vs.append(t)
+        return vs
+
+    gates = [  # label, wrapper, counter, matrix, x shape, dtype, plain,
+        # transpose through the Function's backward, bitwise
+        (f"stencil_spmv {GRID} f32", stencil_spmv, stencil_spmv, fine,
+         (fine.n_rows_pad,), torch.float32, stencil_spmv_plain,
+         lambda a, w: stencil_spmv_plain(a.transposed(), w), True),
+        (f"stencil_spmv {'x'.join(map(str, RULE_F64_DIMS))} f64",
+         stencil_spmv, stencil_spmv, fine64, (fine64.n_rows_pad,),
+         torch.float64, stencil_spmv_plain,
+         lambda a, w: stencil_spmv_plain(a.transposed(), w), True),
+        ("dia_spmv level 1 k=1 f32", dia_spmv, dia_spmv, a1,
+         (a1.n_rows_pad,), torch.float32, dia_spmv_plain, dia_spmv_t_plain,
+         True),
+        ("dia_spmm level 1 k=4 f32", dia_spmm, dia_spmm, a1,
+         (a1.n_rows_pad, 4), torch.float32, dia_spmv_plain,
+         dia_spmv_t_plain, True),
+        ("bdia_spmv elasticity level 0 f32", bdia_spmv, bdia_spmv, a0,
+         (a0.n_rows_pad,), torch.float32, bdia_spmv_plain,
+         bdia_spmv_t_plain, False)]
+    for i, (label, wrap, counter, a, shape, dt, plain, trans, exact) in \
+            enumerate(gates):
+        x, v, w = vecs(a, shape, dt, 700 + 3 * i)
+        before = counter.launches
+        y, tan = torch.func.jvp(lambda z: wrap(a, z), (x,), (v,))
+        jvp_launches = counter.launches - before
+        direct = wrap(a, v)
+        _, tan_plain = torch.func.jvp(lambda z: plain(a, z), (x,), (v,))
+        _, pull = torch.func.vjp(lambda z: wrap(a, z), x)
+        cot = pull(w)[0]
+        cot_want = trans(a, w)
+
+        def q(z):
+            return 0.5 * (z * wrap(a, z)).sum()
+
+        hv = torch.func.jvp(torch.func.grad(q), (x,), (v,))[1]
+        errs = (mx(tan - direct), mx(tan - tan_plain), mx(cot - cot_want))
+        hv_rel = mx(hv - direct) / mx(direct)
+        out["err"][label] = errs[1]
+        log(f"rule {label}: JVP launches {jvp_launches}; tangent vs the "
+            f"wrapper on v max|Δ| {errs[0]:.3e}, vs the plain version's JVP "
+            f"{errs[1]:.3e}; VJP cotangent vs the transpose apply "
+            f"{errs[2]:.3e}; forward-over-reverse hvp of ½xᵀAx vs A v "
+            f"max|Δ|/max|Av| {hv_rel:.3e}"
+            + (" (bitwise)" if exact and not any(errs) else ""))
+        if jvp_launches != 2:
+            fail(f"rule {label}: a JVP launched {jvp_launches} kernels, not 2")
+        tol = 0.0 if exact else RULE_BDIA_TOL * mx(direct)
+        if max(errs) > tol:
+            fail(f"rule {label}: {errs} past {tol:.1e}")
+        if not hv_rel <= HVP_TOL[dt]:
+            fail(f"rule {label}: hvp {hv_rel:.3e} > {HVP_TOL[dt]:.0e}")
+        del x, v, w, y, tan, direct, tan_plain, cot, cot_want, hv
+    del fine64
+
+    # -- JFNK Bratu on the 256³ stencil with the CG path's hierarchy -------
+    bstep, (bu0, bst) = bratu_entry(DIMS, amg=amg, rtol=BRATU_RTOL)
+    kern = {"stencil_spmv": stencil_spmv, "dia_spmv": dia_spmv}
+    zero(kern)
+    vres = amg.apply_state(bst, randn(fine.n_rows_pad, torch.float32, 790))
+    vcycle = counts(kern)
+    del vres
+    calls = {"prec": 0}
+    inner_apply = SaAmg.apply_state
+
+    def counted(*a, **k):
+        calls["prec"] += 1
+        return inner_apply(*a, **k)
+
+    f0 = float(torch.linalg.vector_norm(bstep.residual(bu0)))
+    jvps0 = LinearApply.jvp_calls
+    torch.cuda.reset_peak_memory_stats()
+    in_use = torch.cuda.memory_allocated()
+    with mock.patch.object(SaAmg, "apply_state", counted):
+        bres, bms, blaunch = drive(bstep, (bu0, bst))
+    peak = (torch.cuda.max_memory_allocated() - in_use) / 2 ** 30
+    jvps = LinearApply.jvp_calls - jvps0
+    n_res = blaunch.get("stencil_spmv", 0) - 2 * jvps - calls["prec"] * \
+        vcycle["stencil_spmv"]
+    bref, bplain_ms = plain_run(bstep, bu0, bst)
+    rel_x, _ = rel_err(bres.x, bref.x)
+    mask = torch.zeros(fine.n_rows_pad, dtype=torch.float64, device="cuda")
+    mask[:fine.n_rows] = 1.0
+    x64 = bres.x.double()
+    f_true = float(torch.linalg.vector_norm(
+        stencil_spmv_plain(fine, x64)
+        - BRATU_LAMBDA * bstep.h2 * mask * torch.exp(x64)))
+    target = BRATU_RTOL * f0
+    bwarm = warm_ms(bstep, bu0, bst)
+    busy, wall = device_busy(lambda: bstep(bu0, bst))
+    log(f"JFNK Bratu {GRID} f32 (λ = {BRATU_LAMBDA}, h² = 1/{DIMS[0] + 1}², "
+        f"type2 forcing, polynomial line search, AMG-right-preconditioned "
+        f"GMRES(30), rtol {BRATU_RTOL:g}): converged {bres.converged}, "
+        f"{bres.iters} Newton, {bres.inner_iters} GMRES iterations "
+        f"(plain versions: {bref.iters}, {bref.inner_iters}); "
+        f"max|Δx|/max|x| against the plain run {rel_x:.3e} (bitwise "
+        f"{torch.equal(bres.x, bref.x)}); ‖F(x)‖ in f64 {f_true:.4e}, "
+        f"Newton's {bres.fnorm:.4e}, target {target:.4e} (‖F(0)‖ "
+        f"{f0:.4e}); max u {float(bres.x.max()):.4f}")
+    log(f"JFNK Bratu {GRID}: first solve {bms:.1f} ms, warm {bwarm:.1f} ms, "
+        f"{bwarm / max(bres.iters, 1):.2f} ms a Newton step, "
+        f"{bwarm / max(bres.inner_iters, 1):.2f} ms a GMRES iteration "
+        f"(plain versions {bplain_ms:.1f} ms); busy share {busy / wall:.3f} "
+        f"({busy:.1f} ms of device time in {wall:.1f} ms); the solve's own "
+        f"peak device memory {peak:.3f} GiB; launches a solve {blaunch}: "
+        f"{jvps} JVPs (2 launches each), {calls['prec']} V-cycles "
+        f"({vcycle} each), {n_res} residual evaluations")
+    if not (bres.converged and bref.converged):
+        fail("JFNK Bratu did not converge")
+    if (bres.iters, bres.inner_iters) != (bref.iters, bref.inner_iters):
+        fail(f"JFNK Bratu counts {bres.iters}/{bres.inner_iters} against the "
+             f"plain versions' {bref.iters}/{bref.inner_iters}")
+    if not rel_x <= BRATU_X_TOL:
+        fail(f"JFNK Bratu x: {rel_x:.3e} > {BRATU_X_TOL:.0e}")
+    if not f_true <= target:
+        fail(f"JFNK Bratu true ‖F‖ {f_true:.3e} > target {target:.3e}")
+    if not (blaunch.get("stencil_spmv") and blaunch.get("dia_spmv")):
+        fail(f"JFNK Bratu launched {blaunch}")
+    if n_res < 1 + 2 * bres.iters:
+        fail(f"JFNK Bratu: {n_res} stencil launches left for residuals")
+    v0 = randn(fine.n_rows_pad, torch.float32, 791)
+    x0 = randn(fine.n_rows_pad, torch.float32, 792)
+    out["bratu"] = dict(launches=blaunch, iters=bres.iters,
+                        inner=bres.inner_iters, jvp_host_path_ms=time_ms(
+                            lambda: torch.func.jvp(
+                                lambda z: stencil_spmv(fine, z), (x0,),
+                                (v0,))))
+    log(f"stencil_spmv JVP (primal and tangent, 2 launches) {GRID} f32: "
+        f"{out['bratu']['jvp_host_path_ms']:.4f} ms host path, bound "
+        f"{2 * 2 * fine.n_rows_pad * 4 / HBM_BYTES_PER_MS:.4f} ms")
+    del bres, bref, x64, mask, v0, x0
+
+    # -- examples/nonlinear_pde.py on the card (float32) --------------------
+    zero(kern)
+    t0 = time.perf_counter()
+    nl = nonlinear_pde_entry(NLPDE_NX)
+    torch.cuda.synchronize()
+    nl_s = time.perf_counter() - t0
+    got = {k: nl[k] for k in NLPDE_CPU}
+    log(f"nonlinear PDE (examples/nonlinear_pde.py) {NLPDE_NX}² f32: {got} "
+        f"(CPU: {NLPDE_CPU}); continuation to λ {nl['cont_max_lambda']:.3f}, "
+        f"max u {nl['cont_max_u']:.4f}; march max u {nl['march_max_u']:.4f}, "
+        f"drift {nl['drift']:.2e}; {nl_s:.2f} s; launches {counts(kern)}")
+    for k in ("march_steps", "march_newton"):
+        if abs(got[k] - NLPDE_CPU[k]) > NLPDE_MARCH_TOL * NLPDE_CPU[k]:
+            fail(f"nonlinear PDE {k} {got[k]} against the CPU's "
+                 f"{NLPDE_CPU[k]}")
+    if abs(got["march_rejected"] - NLPDE_CPU["march_rejected"]) > \
+            NLPDE_MARCH_REJECTED:
+        fail(f"nonlinear PDE march rejections {got}")
+    if any(got[k] != NLPDE_CPU[k] for k in NLPDE_CPU
+           if not k.startswith("march")):
+        fail(f"nonlinear PDE counts {got} against the CPU's {NLPDE_CPU}")
+    if not (dia_spmv.launches and nl["drift"] < 1e-2):
+        fail("nonlinear PDE: no dia_kernel launch or the march did not "
+             "settle")
+
+    # -- Phalanx: JFNK nonlinear Poisson on PHALANX_N² Q1 quadrilaterals ----
+    pam, pam_s = ctx["setup"](f"Phalanx K_ii {PHALANX_N}² uncoupled AMG",
+                              lambda: phalanx_amg(PHALANX_N))
+    t0 = time.perf_counter()
+    pstep, (pu0, pst) = phalanx_entry(PHALANX_N, amg=pam)
+    torch.cuda.synchronize()
+    pb_s = time.perf_counter() - t0
+    kii = pam.fine_op
+    xk = randn(kii.n_rows_pad, torch.float64, 793)
+    out["err"]["phalanx K_ii"] = check(
+        f"dia, Phalanx K_ii {PHALANX_N}² ({kii.n_rows} rows x "
+        f"{len(kii.offsets)} diags) f64", dia_spmv(kii, xk),
+        dia_spmv_plain(kii, xk), 0.0)
+    pres, pms, plaunch = drive(pstep, (pu0, pst))
+    pref, pplain_ms = plain_run(pstep, pu0, pst)
+    p_f = float(torch.linalg.vector_norm(pstep.residual(pres.x)))
+    pwarm = warm_ms(pstep, pu0, pst)
+    log(f"Phalanx JFNK -div((1+u²)∇u) = 4 on {PHALANX_N}² Q1 "
+        f"({pstep.block.n_dof} dofs, f64): workset {pb_s:.2f} s, AMG "
+        f"{pam_s:.2f} s; converged {pres.converged}, {pres.iters} Newton, "
+        f"{pres.inner_iters} GMRES iterations (plain versions {pref.iters}, "
+        f"{pref.inner_iters}); ‖F(x)‖ {p_f:.3e}; first solve {pms:.1f} ms, "
+        f"warm {pwarm:.1f} ms (plain versions {pplain_ms:.1f} ms); max u "
+        f"{float(pres.x.max()):.4f}; launches {plaunch}")
+    if not (pres.converged and p_f <= PHALANX_FTOL):
+        fail(f"Phalanx JFNK: converged {pres.converged}, ‖F‖ {p_f:.3e}")
+    if (pres.iters, pres.inner_iters) != (pref.iters, pref.inner_iters):
+        fail("Phalanx JFNK: kernel and plain counts differ")
+    if not plaunch.get("dia_spmv"):
+        fail("Phalanx JFNK: dia_kernel was never launched")
+    out["phalanx"] = dict(a=kii, x=xk, launches=plaunch.get("dia_spmv", 0),
+                          gmres=pres.inner_iters)
+    del pres, pref, pstep
+
+    # -- Piro on the PIRO_DIMS stencil Bratu, p = (λ, source amplitude) -----
+    op32 = laplace3d(*PIRO_DIMS, dtype=np.float64, fmt="stencil")
+    n32, np32 = op32.n_rows, op32.n_rows_pad
+    h2 = 1.0 / (PIRO_DIMS[0] + 1) ** 2
+    m32 = torch.zeros(np32, dtype=torch.float64, device="cuda")
+    m32[:n32] = 1.0
+    target = 0.05 * m32
+
+    def pres_fn(u, p):
+        return stencil_spmv(op32, u) - h2 * m32 * (p[0] * torch.exp(u) + p[1])
+
+    model = piro.Model(pres_fn,
+                       lambda u, p: 0.5 * torch.sum((u - target) ** 2))
+    a32 = SaAmg(op32, {"dtype": np.float64}, device="cuda").compute()
+    st32 = a32.state()
+    nk = dict(prec_factory=lambda x: (lambda v: a32.apply_state(st32, v)),
+              inner_maxiter=3000)
+    p = torch.tensor(PIRO_P, dtype=torch.float64, device="cuda")
+    u0 = torch.zeros(np32, dtype=torch.float64, device="cuda")
+    zero(kern)
+    t0 = time.perf_counter()
+    sres = piro.solve_steady(model, u0, p, sensitivities=True, rtol=1e-12,
+                             adjoint_rtol=1e-10, **nk)
+    torch.cuda.synchronize()
+    s_ms = (time.perf_counter() - t0) * 1e3
+    s_launch = counts(kern)
+    fd = []
+    for k in range(2):
+        gs = []
+        for sgn in (1.0, -1.0):
+            pk = p.clone()
+            pk[k] += sgn * PIRO_FD_STEP * max(1.0, abs(PIRO_P[k]))
+            gs.append(float(piro.solve_steady(model, sres.u, pk, rtol=1e-12,
+                                              **nk).g))
+        fd.append((gs[0] - gs[1]) / (2 * PIRO_FD_STEP
+                                     * max(1.0, abs(PIRO_P[k]))))
+    dg = sres.dgdp.cpu().numpy()
+    fd_rel = float(np.abs(dg - fd).max() / np.abs(fd).max())
+    log(f"Piro {'x'.join(map(str, PIRO_DIMS))} f64 Bratu, p = {PIRO_P}: "
+        f"converged {sres.converged}, {sres.iters} Newton, "
+        f"{sres.inner_iters} GMRES (AMG) iterations; adjoint GMRES "
+        f"(unpreconditioned, VJP rule) {sres.adjoint_iters} iterations; "
+        f"g {float(sres.g):.6e}; dg/dp {dg} against the central difference "
+        f"{np.asarray(fd)}: max rel {fd_rel:.3e} (gate {PIRO_FD_RTOL:.0e}); "
+        f"{s_ms:.1f} ms; launches {s_launch}")
+    if not sres.converged or not fd_rel <= PIRO_FD_RTOL:
+        fail(f"Piro: converged {sres.converged}, dg/dp {fd_rel:.3e}")
+    if not s_launch.get("stencil_spmv"):
+        fail("Piro: stencil_kernel was never launched")
+    zero(kern)
+    t0 = time.perf_counter()
+    tres, tg = piro.solve_transient(model, u0, p, 0.0, 0.05, 0.01)
+    torch.cuda.synchronize()
+    log(f"Piro transient du/dt = -F(u, p) to t = 0.05: {tres.steps} steps "
+        f"({tres.rejected} rejected), {tres.newton_iters} Newton iterations, "
+        f"g(u(t)) {float(tg):.6e}, {(time.perf_counter() - t0) * 1e3:.1f} "
+        f"ms; launches {counts(kern)}")
+    if not (tres.steps >= 2 and abs(tres.t - 0.05) < 1e-12
+            and np.isfinite(float(tg))):
+        fail(f"Piro transient: {tres.steps} steps to t = {tres.t}")
+    del sres, tres, a32, st32
+
+    # -- ROL: trust-region Newton-CG on ½xᵀAx − bᵀx (hvp by the rules) ------
+    opt = laplace3d(*OPT_DIMS, dtype=np.float64, fmt="stencil")
+    bq = torch.zeros(opt.n_rows_pad, dtype=torch.float64, device="cuda")
+    bq[:opt.n_rows] = randn(opt.n_rows, torch.float64, 794)
+    bnorm = float(torch.linalg.vector_norm(bq))
+    zero(kern)
+    bw0 = LinearApply.backward_calls
+    t0 = time.perf_counter()
+    ores = trust_region_newton(
+        lambda x: 0.5 * torch.dot(x, stencil_spmv(opt, x)) - torch.dot(bq, x),
+        torch.zeros_like(bq), gtol=1e-9 * bnorm, maxiter=200,
+        cg_maxiter=1000)
+    torch.cuda.synchronize()
+    o_ms = (time.perf_counter() - t0) * 1e3
+    o_true = float(torch.linalg.vector_norm(
+        bq - stencil_spmv_plain(opt, ores.x))) / bnorm
+    log(f"ROL trust-region Newton-CG on ½xᵀAx − bᵀx, A the "
+        f"{'x'.join(map(str, OPT_DIMS))} f64 stencil: converged "
+        f"{ores.converged}, {ores.iters} outer, {ores.inner_iters} CG "
+        f"iterations, {LinearApply.backward_calls - bw0} backward rules; "
+        f"true relative residual {o_true:.3e} (gate {OPT_TRUE_MAX:.0e}); "
+        f"{o_ms:.1f} ms; launches {counts(kern)}")
+    if not (ores.converged and o_true <= OPT_TRUE_MAX):
+        fail(f"ROL trust region: true residual {o_true:.3e}")
+    if not stencil_spmv.launches:
+        fail("ROL trust region: stencil_kernel was never launched")
+    xr = torch.tensor([-1.2, 1.0], dtype=torch.float64,
+                      device="cuda").repeat(LBFGS_N // 2)
+    t0 = time.perf_counter()
+    lres = lbfgs(lambda x: torch.sum(100.0 * (x[1::2] - x[::2] ** 2) ** 2
+                                     + (1.0 - x[::2]) ** 2), xr, gtol=1e-6,
+                 maxiter=500)
+    torch.cuda.synchronize()
+    log(f"ROL L-BFGS on Rosenbrock n = {LBFGS_N} f64: converged "
+        f"{lres.converged}, {lres.iters} iterations, {lres.inner_iters} "
+        f"line-search evaluations (CPU: {LBFGS_CPU}); max|x − 1| "
+        f"{mx(lres.x - 1.0):.3e}; {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    if (lres.iters, lres.inner_iters) != LBFGS_CPU or not lres.converged:
+        fail(f"ROL L-BFGS {lres.iters}/{lres.inner_iters} against the CPU's "
+             f"{LBFGS_CPU}")
+    del ores, lres, xr, bq
+    log(f"application phase: {time.perf_counter() - t_app:.1f} s with its "
+        "set-up")
+    return out
+
+
+def application_only():
+    """``application_phase`` alone (``scripts/chip_application.py``): the
+    kernels built, then what the phase takes from the earlier sections as
+    ``main`` builds it (the DIMS stencil and its Jacobi hierarchy; the
+    elasticity matrix on EL_DIMS nodes as BDIA, which is block AMG's level
+    0) and ``main``'s helpers for the phase's kernels."""
+    from trilinos_tpu_torch.galeri import elasticity3d, laplace3d
+    from trilinos_tpu_torch.ops import (_build, bdia_spmv, bdia_spmv_plain,
+                                        csr_to_bdia, dia_spmv, dia_spmv_plain,
+                                        matvec, spgemm, stencil_spmv,
+                                        stencil_spmv_plain)
+    from trilinos_tpu_torch.precond import SaAmg
+
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    kernels = {"stencil_spmv": stencil_spmv, "dia_spmv": dia_spmv,
+               "bdia_spmv": bdia_spmv}
+
+    def setup(label, fn):
+        spgemm.native_calls = spgemm.numpy_calls = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"setup {label}: {secs:.2f} s; SpGEMM products: native "
+            f"{spgemm.native_calls}, numpy {spgemm.numpy_calls}")
+        if spgemm.numpy_calls or not spgemm.native_calls:
+            fail(f"setup {label}: the native SpGEMM did not serve it")
+        return out, secs
+
+    def drive(step, args):
+        zero(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, {
+            k: v for k, v in counts(kernels).items() if v}
+
+    def plain_run(fn, *args):
+        before = counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for attr, plain in (("stencil_spmv", stencil_spmv_plain),
+                                ("dia_spmv", dia_spmv_plain),
+                                ("bdia_spmv", bdia_spmv_plain)):
+                stack.enter_context(mock.patch.object(matvec, attr, plain))
+            out = fn(*args)
+        torch.cuda.synchronize()
+        if counts(kernels) != before:
+            fail("a plain reference run launched a kernel")
+        return out, (time.perf_counter() - t0) * 1e3
+
+    fine = laplace3d(*DIMS, dtype=np.float32, fmt="stencil")
+    amg, _ = setup(f"{GRID} hierarchy", lambda: SaAmg(
+        fine, {"dtype": np.float32}, device="cuda").compute())
+    a0 = csr_to_bdia(elasticity3d(*EL_DIMS, e_mod=1.0, dtype=np.float32), 3,
+                     dtype=np.float32, device="cuda")
+    return application_phase(dict(
+        fine=fine, amg=amg, a1=amg.state()["levels"][1]["a"], a0=a0,
+        setup=setup, drive=drive, plain_run=plain_run))
 
 
 def dist_rank_phases(comm, device, c4_dims, amg_dims, small_dims):
@@ -1072,6 +1548,11 @@ def dist_rank_c4_one(comm, device, c4_dims):
 
 def main():
     t_main = time.perf_counter()
+
+    def at(section):
+        """Log the seconds since the start as a section begins."""
+        log(f"[{time.perf_counter() - t_main:.1f} s] section {section}")
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -1170,6 +1651,7 @@ def main():
             fail(f"setup {label}: the native SpGEMM did not serve it")
         return out, secs
 
+    at("1")
     # -- 1. the card ---------------------------------------------------------
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1179,6 +1661,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    at("2")
     # -- 2. build (one nvcc per source, all started together) ----------------
     t0 = time.perf_counter()
     built = _build.build()
@@ -1198,6 +1681,7 @@ def main():
                         or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
 
+    at("3")
     # -- 3. stencil kernels against their plain versions ---------------------
     # the single-vector SpMV, bitwise, at the paths' shapes and at every
     # geometry of tests/test_torch_spmv_tile.py, f32 and f64, with pad
@@ -1307,6 +1791,7 @@ def main():
             f"{x.data_ptr() % 16})", y, stencil_spmv_plain(op, x), 0.0))
         del buf, x, y
 
+    at("4")
     # -- 4. one hierarchy for both paths; DIA kernels on every level ---------
     fine = laplace3d(*DIMS, dtype=np.float32, fmt="stencil")
     amg, jacobi_setup_s = setup(f"{GRID} hierarchy", lambda: SaAmg(
@@ -1363,6 +1848,7 @@ def main():
     check("dia level-1 bf16 data", dia_spmv(a1_bf16, x1),
           dia_spmv_plain(a1_bf16, x1), TOL[torch.float32])
 
+    at("5")
     # -- 5. chol_inv_small for every k it takes, f32 and f64 -----------------
     def chol_readings(g, l, linv, lp, linvp):
         """(vs plain, ‖LLᵀ − g‖/‖g‖, max|L⁻¹L − I|), all in g's type."""
@@ -1417,6 +1903,7 @@ def main():
             f"panels): worst vs plain {worst[0]:.3e}, ‖LLᵀ−g‖/‖g‖ "
             f"{worst[1]:.3e}, max|L⁻¹L−I| {worst[2]:.3e}, all within {tol}")
 
+    at("5b")
     # -- 5b. stencil polynomial and fused CG iteration kernels ---------------
     # the Chebyshev AMG smoother's stages (degree 3, Gershgorin λmax, as
     # SaAmg builds them) and the s-step bases: monomial σ = 12 and Newton
@@ -1558,6 +2045,7 @@ def main():
                     f"cg_fused {label} one iteration, {when}, {nm}", g, w_,
                     CG_FUSED_TOL if nm == "scal" else 0.0))
 
+    at("6")
     # -- 6. the CG path, then the plain versions as reference ----------------
     res, solve_ms, cg_launches, cg_per, cg_gaps = run_marked(
         step, (b, state), SaAmg, "apply_state", cg_kernels)
@@ -1625,6 +2113,7 @@ def main():
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
 
+    at("7")
     # -- 7. the block GMRES path, then the plain versions as reference -------
     t0 = time.perf_counter()
     bstep, (bb, bstate) = block_entry(nrhs=NRHS, amg=amg)
@@ -1699,6 +2188,7 @@ def main():
             r64 - stencil_spmv_plain(fine, x.double()))
             / torch.linalg.vector_norm(r64))
 
+    at("7b")
     # -- 7b. AMG-PCG with the Chebyshev smoother: a second hierarchy -------
     camg, cheb_setup_s = setup(f"{GRID} Chebyshev hierarchy", lambda: SaAmg(
         fine, {"dtype": np.float32, "smoother: type": "chebyshev"},
@@ -1737,6 +2227,7 @@ def main():
     del cref
     cwarm_ms = warm(cstep, cb, cstate)
 
+    at("7c")
     # -- 7c. s-step GMRES with the matrix-powers basis ---------------------
     sstep, (sb,) = sstep_entry(dims=DIMS, device="cuda")
     norms = []
@@ -1779,6 +2270,7 @@ def main():
     del sref
     swarm_ms = warm(sstep, sb)
 
+    at("7d")
     # -- 7d. fused-iteration CG ---------------------------------------------
     fstep, (fb,) = fused_cg_entry(dims=DIMS, device="cuda")
     fres, fsolve_ms, f_launches, f_per, f_gaps = run_marked(
@@ -1812,6 +2304,7 @@ def main():
              f"resnorm {frel_r:.3e} (tol {FUSED_CG_X_TOL:.0e})")
     del k100, p100
 
+    at("7e")
     # -- 7e. the BDIA kernel against its plain version; the elasticity paths -
     # the two sides sum each row in another order: f32 tolerance, not bitwise
     def check_bdia(label, a, x, planes=False):
@@ -1934,6 +2427,7 @@ def main():
     del eref
     ewarm_ms = warm(estep, eb, est)
 
+    at("7f")
     # -- 7f. CG in plane layout on the 64x64x48 elasticity operator ----------
     pstep, (pb,) = bdia_cg_entry(a=a3, iters=PLANE_ITERS)
     zero(plane_kernels)
@@ -1966,6 +2460,7 @@ def main():
              f"{PLANE_X_TOL:.0e}")
     del kchk, rchk
 
+    at("7g")
     # -- 7g. GMRES(30) with CGS2, fixed work (rtol 0): f32 and bf16 basis ----
     gmres_mod = importlib.import_module("trilinos_tpu_torch.solvers.gmres")
     gmres_kernels = {"stencil_spmv": stencil_spmv}
@@ -2007,6 +2502,7 @@ def main():
             warm=warm(gstep, *gargs), peak=gpeak, launches=g_launches,
             per=g_per)
 
+    at("7h")
     # -- 7h. AMG-preconditioned GMRES(30) on the CG path's hierarchy --------
     astep, (ab, ast) = gmres_entry(amg=amg)
     ares, asolve_ms, a_launches, a_per, a_gaps = run_marked(
@@ -2034,6 +2530,7 @@ def main():
     del aref, ares
     awarm_ms = warm(astep, ab, ast)
 
+    at("7i")
     # -- 7i. BASELINE config 2 at its stated size, and the GMRES variants ---
     grid2c = "x".join(map(str, CONFIG2_DIMS))
     t0 = time.perf_counter()
@@ -2087,6 +2584,7 @@ def main():
                  f"true residual {v_true:.3e}")
         c2_variants[solver] = (vres.iters, vms, vstep)
 
+    at("7j")
     # -- 7j. every single-RHS factory kind at 256³, AMG-preconditioned -------
     # create_solver(name, params).solve(LinearProblem(...)) on the CG path's
     # hierarchy (factory_entry); LSQR unpreconditioned at a fixed count
@@ -2170,6 +2668,7 @@ def main():
         fk_runs[name] = dict(step=kstep, args=kargs, iters=kiters, first=kms,
                              launches=klaunch, warm=warm(kstep, *kargs))
 
+    at("7k")
     # -- 7k. the block kinds at 256³: Block CG (k = 16), Block GCRODR (k = 4)
     spmm_by_k = collections.Counter()  # stencil SpMM launches by k
     dia_by_k = collections.Counter()  # DIA SpMM launches by (rows, k)
@@ -2235,6 +2734,7 @@ def main():
             del kres
         block_runs[name]["warm"] = warm(kstep, *kargs)
 
+    at("7l")
     # -- 7l. BASELINE config 4 on one card: pipelined CG, 128³ DIA, f64 -----
     grid4 = "x".join(map(str, CONFIG4_DIMS))
     t0 = time.perf_counter()
@@ -2271,6 +2771,7 @@ def main():
     del c4ref, c4res
     c4warm_ms = warm(c4step, c4b)
 
+    at("7m")
     # -- 7m. the Stratimikos path: build() on one stored 256³ DIA matrix -----
     t0 = time.perf_counter()
     a256 = laplace3d(*DIMS, dtype=np.float32)
@@ -2338,6 +2839,7 @@ def main():
              f"{poly_runs['GMRESPOLY']['true']:.3e} not below plain GMRES's "
              f"{poly_runs['None']['true']:.3e}")
 
+    at("7n")
     # -- 7n. the stored-matrix path: BASELINE config 3 through Matrix Market
     # (recirc2d written and read back by the native reader, ELL, Ilu0 with 20
     # sweeps on DIA factors, DGKS block GMRES nrhs 2, f64)
@@ -2418,6 +2920,7 @@ def main():
     del c3ref, c3res
     c3warm_ms = warm(c3step, c3b)
 
+    at("7o")
     # -- 7o. uncoupled SA-AMG PCG on a stored Laplace3D 128³ (fine level DIA,
     # coarse levels and transfers ELL), f32
     gridu = "x".join(map(str, UAMG_DIMS))
@@ -2466,6 +2969,7 @@ def main():
     del uref, ures
     uwarm_ms = warm(ustep, ub, ust)
 
+    at("7p")
     # -- 7p. null-space uncoupled SA-AMG on the elasticity matrix ----------
     nsamg, ns_setup_s = setup(f"null-space uncoupled {grid_e}", lambda: SaAmg(
         ea, {"dtype": np.float32, "nullspace: vectors": rigid_body_modes(
@@ -2498,6 +3002,7 @@ def main():
     nsiters = int(nsres.iters)
     del nsres
 
+    at("7q")
     # -- 7q. every preconditioner name this slice ports through build() ----
     nxm, nym = MAXWELL_DIMS
     n_edges = nxm * (nym + 1) + (nxm + 1) * nym
@@ -2544,6 +3049,7 @@ def main():
                                  first=bms_, setup=bset_s, launches=blaunch_)
         del bres_, bstep_
 
+    at("7q")
     # -- 7q. the direct solvers on the host at real size: native sparse LU on
     # config 3's matrix, native sparse Cholesky on laplace2d 256²
     al2 = laplace2d(CHOL_NX, CHOL_NX)
@@ -2585,6 +3091,7 @@ def main():
     else:
         fail("SparseCholesky factored the nonsymmetric recirc2d")
 
+    at("7r")
     # -- 7r. the Amesos2 names through build(): DIRECT, AMESOS2, KLU2 with
     # GMRES(30) on recirc2d 64², TACHO and CHOLMOD with CG on laplace2d 64²;
     # the apply is a dense n² inverse on the card
@@ -2635,6 +3142,7 @@ def main():
         del dstep, dres, inv
     del d_csr
 
+    at("7s")
     # -- 7s. two-level Schwarz CG on laplace2d 256² ("add" combine, 8 x 8 box
     # subdomains, RGDSW, hybrid coupling: its A·x runs the DIA kernel) beside
     # one-level Schwarz on the same partition (its first level)
@@ -2688,6 +3196,7 @@ def main():
     tlwarm_ms = warm(tl_step(tlm), tlb)
     del tl_csr
 
+    at("7t")
     # -- 7t. Komplex: the complex shifted Laplacian through a complex Matrix
     # Market file, solved as its real form with GMRES(30) + RILUK
     grid_k = f"{KOMPLEX_NX}x{KOMPLEX_NX}"
@@ -2726,6 +3235,7 @@ def main():
     kres_iters = int(kres.iters)
     del kres
 
+    at("7u")
     # -- 7u. Pliris on one card: dense_solve of a diagonally dominant f64
     # system
     ad = randn((DENSE_N, DENSE_N), torch.float64, seed=71)
@@ -2741,6 +3251,7 @@ def main():
         fail(f"dense_solve: true residual {d_res:.3e}")
     del ad, bd, xd
 
+    at("7v")
     # -- 7v. Teko: GMRES(40) on the blocked 48 + 32 system with block
     # Gauss-Seidel (exact diagonal-block inverses) on the card; the count
     # may move by one, GMRES summing in another order there
@@ -2765,6 +3276,7 @@ def main():
         fail(f"Teko: converged {bool(tres.converged)}, {int(tres.iters)} "
              f"iterations, true residual {t_true:.3e}")
 
+    at("7w")
     # -- 7w. the Anasazi eigensolvers: one f64 Jacobi hierarchy of the 256³
     # stencil serves the preconditioned phases (e1 LOBPCG, e2 Block
     # Davidson, e5 LOBPCG on the Q1 mass pencil); each phase is driven
@@ -3100,25 +3612,25 @@ def main():
     log(f"eigensolver phases: {eig_total_s:.1f} s with their set-up "
         f"({eig_setup_s:.2f} s)")
 
-    # -- 7y. the FE discretisation layer: Q1 Poisson on FEM_DIMS hexahedra --
+    at("7y")
+    # -- 7y. the FE discretisation layer: Q1 Poisson on FEM_GRID hexahedra --
     # (fem_poisson_entry: the mesh, assembly and Dirichlet condensation on
     # the host, K_ii as 27-diagonal DIA, uncoupled SA-AMG PCG at rtol
     # FEM_RTOL, assembled and matrix-free; then the manufactured solution
     # and the VTK round trip)
-    from trilinos_tpu_torch.entry import (FEM_DIMS, FEM_RTOL,
-                                          fem_poisson_entry,
+    from trilinos_tpu_torch.entry import (FEM_RTOL, fem_poisson_entry,
                                           fem_poisson_problem)
     from trilinos_tpu_torch.io import read_vtk, write_vtk
     from trilinos_tpu_torch.ops.fe import fe_apply_local
 
     t_fem = time.perf_counter()
     fem_mem0 = torch.cuda.memory_allocated()
-    grid_f = "x".join(map(str, FEM_DIMS))
-    fprob = fem_poisson_problem(FEM_DIMS)
+    grid_f = "x".join(map(str, FEM_GRID))
+    fprob = fem_poisson_problem(FEM_GRID)
     (fem_step, (fem_b, fem_st)), _ = setup(
         f"FE Q1 Poisson {grid_f} uncoupled hierarchy",
-        lambda: fem_poisson_entry(FEM_DIMS, problem=fprob))
-    fmf, _ = fem_poisson_entry(FEM_DIMS, amg=fem_step.preconditioner,
+        lambda: fem_poisson_entry(FEM_GRID, problem=fprob))
+    fmf, _ = fem_poisson_entry(FEM_GRID, amg=fem_step.preconditioner,
                                matrix_free=True, problem=fprob)
     fop = fem_step.operator
     n_f = fop.n_rows
@@ -3133,7 +3645,7 @@ def main():
         f"held by the path (K_ii, the hierarchy, the element matrices) "
         f"{(torch.cuda.memory_allocated() - fem_mem0) / 2 ** 30:.3f} GiB")
     if not (isinstance(fop, DiaMatrix) and len(fop.offsets) == 27
-            and n_f == int(np.prod([d - 1 for d in FEM_DIMS]))):
+            and n_f == int(np.prod([d - 1 for d in FEM_GRID]))):
         fail(f"FE Q1 K_ii: {type(fop).__name__} with "
              f"{len(getattr(fop, 'offsets', ()))} diagonals, {n_f} rows")
     xf = torch.zeros(fop.n_rows_pad, dtype=torch.float64, device="cuda")
@@ -3183,7 +3695,7 @@ def main():
                                  - fprob.exact).max())
     log(f"FE Q1 Poisson {grid_f} manufactured solution sin(πx)sin(πy)sin(πz)"
         f": {int(mres.iters)} iterations, max nodal error "
-        f"{fem_nodal_err:.3e} at h = 1/{FEM_DIMS[0]} (gate "
+        f"{fem_nodal_err:.3e} at h = 1/{FEM_GRID[0]} (gate "
         f"{FEM_NODAL_MAX:.0e})")
     if not (bool(mres.converged) and fem_nodal_err <= FEM_NODAL_MAX):
         fail(f"FE Q1 Poisson manufactured solution: error "
@@ -3229,6 +3741,7 @@ def main():
     fem_total_s = time.perf_counter() - t_fem
     log(f"FE phase: {fem_total_s:.1f} s with its set-up")
 
+    at("7x")
     # -- 7x. the distributed layer: DIST_RANKS rank processes on this card --
     # (gloo; the kernels were built above, before any rank starts, so the
     # ranks load them and never race on the build directory)
@@ -3552,6 +4065,35 @@ def main():
             per_step=per_rank[0] / max(ranks[0][label]["iters"], 1),
             err=max(errs) if errs else 0.0))
 
+    at("7z")
+    # -- 7z. the application layer: derivative rules, JFNK, Phalanx, Piro, ROL
+    # (bratu_entry on the CG path's hierarchy, each solve again through the
+    # plain versions; every path driven with the counts at 0 just before)
+    log(card)
+
+    def host_state(when):
+        """What the phase's host-paced solves share with the earlier
+        sections: device memory held, the allocator's retries (each frees
+        the cache and calls cudaMalloc again), live child processes and
+        threads."""
+        stats = torch.cuda.memory_stats()
+        log(f"application phase {when}: device memory allocated "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, reserved "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}"
+            f"; allocator retries {stats.get('num_alloc_retries', 0)}, "
+            f"cudaMalloc calls {stats.get('num_device_alloc', 'n/a')}; "
+            f"child processes "
+            f"{len(multiprocessing.active_children())}; threads "
+            f"{threading.active_count()}")
+
+    host_state("start")
+    app = application_phase(dict(fine=fine, amg=amg, a1=a1, a0=a0,
+                                 setup=setup, drive=drive,
+                                 plain_run=plain_run))
+    host_state("end")
+
+    at("8")
     # -- 8. timings at the main paths' shapes --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     n0, n1, nd = fine.n_rows_pad, a1.n_rows_pad, len(a1.offsets)
@@ -3910,6 +4452,52 @@ def main():
         library=lambda: csr_fe @ xf, launches=fe_dia,
         per_step=fe_dia / max(sum(r["iters"] for r in fem_runs.values()), 1),
         err=fem_err))
+    # the eighteenth slice's shapes: stencil_kernel inside JFNK Bratu (its
+    # residuals, 2 a JVP, the V-cycle's fine level), dia_kernel on its
+    # coarse levels (level 1 timed; every coarse level shares the count),
+    # dia_kernel on Phalanx's K_ii (f64, the V-cycle's fine level)
+    jfnk, aph = app["bratu"], app["phalanx"]
+    kph, xph = aph["a"], aph["x"]
+    csr_ph = dia_as_csr(kph)
+    check(f"sparse CSR library call vs dia (Phalanx K_ii {PHALANX_N}², f64)",
+          csr_ph @ xph, dia_spmv_plain(kph, xph), 1e-12)
+    rows += [
+        dict(name="stencil_spmv", source="stencil_spmv.cu",
+             replaces="stencil_op.py:475", also_replaces="stencil_op.py:702",
+             shape=f"{GRID} f32 inside JFNK Bratu (residuals, 2 a JVP, the "
+                   "V-cycle's fine level)",
+             bytes=2 * n0 * 4, flops=2 * fine.nnz,
+             kernel=lambda: stencil_spmv(fine, x0),
+             plain=lambda: stencil_spmv_plain(fine, x0),
+             library=lambda: conv(x0),
+             launches=jfnk["launches"]["stencil_spmv"],
+             per_step=jfnk["launches"]["stencil_spmv"] / jfnk["iters"],
+             err=app["err"][f"stencil_spmv {GRID} f32"],
+             extra=dict(jvp_host_path_ms=jfnk["jvp_host_path_ms"],
+                        jvp_bound_ms=2 * 2 * n0 * 4 / HBM_BYTES_PER_MS)),
+        dict(name="dia_spmv", source="dia_spmv.cu",
+             replaces="dia_spmv.py:273", also_replaces="dia_spmv.py:524",
+             shape=f"level 1, {n1} rows x {nd} diags f32, JFNK Bratu's "
+                   "V-cycle (every coarse level shares the count)",
+             bytes=(nd + 2) * n1 * 4, flops=2 * nnz1,
+             kernel=lambda: dia_spmv(a1, x1),
+             plain=lambda: dia_spmv_plain(a1, x1),
+             library=lambda: csr @ x1,
+             launches=jfnk["launches"]["dia_spmv"],
+             per_step=jfnk["launches"]["dia_spmv"] / jfnk["iters"],
+             err=app["err"]["dia_spmv level 1 k=1 f32"]),
+        dict(name="dia_spmv", source="dia_spmv.cu",
+             replaces="dia_spmv.py:273", also_replaces="dia_spmv.py:524",
+             shape=f"Phalanx K_ii on {PHALANX_N}² Q1 quadrilaterals, "
+                   f"{kph.n_rows_pad} rows x {len(kph.offsets)} diags f64 "
+                   "(the JFNK preconditioner's fine level)",
+             bytes=(len(kph.offsets) + 2) * kph.n_rows_pad * 8,
+             flops=2 * nonzeros(kph), flops_per_ms=F64_FLOPS_PER_MS,
+             kernel=lambda: dia_spmv(kph, xph),
+             plain=lambda: dia_spmv_plain(kph, xph),
+             library=lambda: csr_ph @ xph, launches=aph["launches"],
+             per_step=aph["launches"] / max(aph["gmres"], 1),
+             err=app["err"]["phalanx K_ii"])]
     # the twelfth slice's shapes (the eigensolvers, f64), each held to its
     # plain version in 7w and each library call to the plain version first
     e1r, e3r = eig_runs["e1"], eig_runs["e3"]
@@ -4065,6 +4653,7 @@ def main():
             bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=library_ms)
+        entry_.update(r.get("extra", {}))
         if r["name"] in fused_launches:
             entry_["kernel_launches"] = fused_launches[r["name"]]
         if r["name"] == "chol_inv_small":
@@ -4307,6 +4896,7 @@ def main():
             f"peak device memory {run['peak']:.2f} GiB; launches "
             f"{run['launches']}")
 
+    at("9")
     # -- 9. one solve of each path under the profiler: device time by kernel
     # (last, so that it cannot disturb the timings above)
     profile("CG solve", lambda: step(b, state), focus="stencil_kernel")

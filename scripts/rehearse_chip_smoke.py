@@ -1,13 +1,22 @@
 """Rehearse ``chip_smoke.py`` on a CPU-only machine before a chip run.
 
     python3 scripts/rehearse_chip_smoke.py
+    python3 scripts/rehearse_chip_smoke.py --application
+
+The second form runs the application phase (section 7z) alone through
+``chip_smoke.application_only`` (``scripts/chip_application.py`` on the
+card), on the sizes cut as below: the 32³ stencil and its Jacobi
+hierarchy, the 16³ elasticity BDIA matrix (about 70 s). The application
+phase's own sizes are cut too: the rule gates' f64
+stencil 64³ → 12³, Phalanx 512² → 32², Piro and the trust-region problem
+32³ → 12³, L-BFGS's Rosenbrock 2²⁰ → 2¹² (the same counts at every n).
 
 Runs the whole script at small sizes (256³ → 32³, the elasticity, plane,
 BDIA, config 2 and config 4 grids cut as below, the uncoupled AMG's 128³ →
 16³, config 3's 128² → 32² with the CPU's 29 block steps, maxwell2d 128² →
 24², other 128³ cases → 24³, the direct solvers' laplace2d 256² → 32² and
 64² → 16², Komplex 128² → 24² with the CPU's count there, the dense solve
-4096² → 256², the eigensolvers' 64³ grid → 12³, the FE phase's 96³
+4096² → 256², the eigensolvers' 64³ grid → 12³, the FE phase's 80³
 hexahedra → 16³, the distributed phases' 256³ and 128³ grids → 32³ and
 24³ and their dense LU's 8192² → 512², their one-rank nccl group over
 gloo;
@@ -129,6 +138,10 @@ torch.cuda.synchronize = lambda *a: None
 torch.cuda.reset_peak_memory_stats = lambda *a: None
 torch.cuda.max_memory_allocated = lambda *a: 0
 torch.cuda.memory_allocated = lambda *a: 0
+torch.cuda.memory_reserved = lambda *a: 0
+torch.cuda.memory_stats = lambda *a: {}
+torch.cuda.get_device_properties = lambda *a: types.SimpleNamespace(
+    total_memory=0)
 torch.cuda.get_device_name = lambda *a: "rehearsal"
 torch.cuda.device_count = lambda: 1
 torch.cuda.device = lambda d: contextlib.nullcontext()
@@ -136,7 +149,7 @@ torch.cuda.current_stream = lambda *a: Stream()
 
 src = (ROOT / "chip_smoke.py").read_text()
 reps = [("DIMS = (256, 256, 256)", "DIMS = (32, 32, 32)"),
-        ("EL_DIMS = (40, 40, 40)", "EL_DIMS = (16, 16, 16)"),
+        ("EL_DIMS = (32, 32, 32)", "EL_DIMS = (16, 16, 16)"),
         ("PLANE_DIMS = (64, 64, 48)", "PLANE_DIMS = (8, 8, 8)"),
         ("PLANE_ITERS = 400", "PLANE_ITERS = 60"),
         ("BDIA2D_DIMS = (1024, 512)", "BDIA2D_DIMS = (64, 32)"),
@@ -152,13 +165,19 @@ reps = [("DIMS = (256, 256, 256)", "DIMS = (32, 32, 32)"),
         ("KOMPLEX_CPU_ITERS = 15", "KOMPLEX_CPU_ITERS = 14"),
         ("DENSE_N = 4096", "DENSE_N = 256"),
         ("DIST_DENSE_N = 8192", "DIST_DENSE_N = 512"),
-        # the FE phase's 96³ hexahedra → 16³ (entry.FEM_DIMS, set below),
-        # where the manufactured solution's O(h²) error is about 6.5e-3
+        # the FE phase's 80³ hexahedra → 16³, where the manufactured
+        # solution's O(h²) error is about 6.5e-3
+        ("FEM_GRID = (80, 80, 80)", "FEM_GRID = (16, 16, 16)"),
         ("FEM_NODAL_MAX = 1e-3", "FEM_NODAL_MAX = 1e-2"),
         ("EIG_SMALL_DIMS = (64, 64, 64)", "EIG_SMALL_DIMS = (12, 12, 12)"),
         # at 32³ the s-step runs end at float32's rounding floor, where
         # the distributed and single-card residual norms part by ≈ 1e-2
         ("DIST_SSTEP_RTOL = 1e-4", "DIST_SSTEP_RTOL = 5e-2"),
+        ("RULE_F64_DIMS = (64, 64, 64)", "RULE_F64_DIMS = (12, 12, 12)"),
+        ("PHALANX_N = 512", "PHALANX_N = 32"),
+        ("PIRO_DIMS = (32, 32, 32)", "PIRO_DIMS = (12, 12, 12)"),
+        ("OPT_DIMS = (32, 32, 32)", "OPT_DIMS = (12, 12, 12)"),
+        ("LBFGS_N = 2 ** 20", "LBFGS_N = 2 ** 12"),
         ("(128, 128, 128)", "(24, 24, 24)"),
         ('"cuda"', '"cpu"'),
         ('"nccl"', '"gloo"'),
@@ -166,7 +185,6 @@ reps = [("DIMS = (256, 256, 256)", "DIMS = (32, 32, 32)"),
 for a, b in reps:
     assert a in src, a
     src = src.replace(a, b)
-importlib.import_module("trilinos_tpu_torch.entry").FEM_DIMS = (16, 16, 16)
 ns = {"__name__": "chip_smoke_rehearsal",
       "__file__": str(ROOT / "chip_smoke.py")}
 exec(compile(src, "chip_smoke.py", "exec"), ns)
@@ -175,4 +193,9 @@ ns["subprocess"] = types.SimpleNamespace(
     run=lambda *a, **k: types.SimpleNamespace(
         stdout="rehearsal on the CPU, no power limit\n"))
 ns["SAMPLES"] = 3
-ns["main"]()
+
+
+if "--application" in sys.argv:
+    ns["application_only"]()
+else:
+    ns["main"]()

@@ -35,7 +35,8 @@ from trilinos_tpu.solvers import cg as j_cg
 
 import trilinos_tpu_torch
 from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
-                                      bsr_gmres_entry, cheb_entry,
+                                      bratu_entry, bsr_gmres_entry,
+                                      cheb_entry,
                                       dist_amg_entry, dist_eigen_entry,
                                       dist_md_entry,
                                       dist_pipelined_cg_entry,
@@ -43,7 +44,9 @@ from trilinos_tpu_torch.entry import (bdia_cg_entry, block_entry,
                                       eigen_entry, elasticity_entry, entry,
                                       fused_cg_entry, gmres_entry,
                                       komplex_entry, mm_block_gmres_entry,
-                                      sstep_entry, uncoupled_amg_entry)
+                                      nonlinear_pde_entry, phalanx_amg,
+                                      phalanx_entry, sstep_entry,
+                                      uncoupled_amg_entry)
 from trilinos_tpu_torch.galeri import (elasticity3d, laplace3d,
                                        rigid_body_modes)
 from trilinos_tpu_torch.ops import (bdia_spmm, bdia_spmv, cg_fused_iteration,
@@ -424,6 +427,22 @@ def test_port_imports_no_jax():
             "trilinos_tpu_torch/fem/refine.py",
             "trilinos_tpu_torch/fem/mortar.py",
             "trilinos_tpu_torch/io/vtk.py",
+            "trilinos_tpu_torch/ops/autodiff.py",
+            "trilinos_tpu_torch/nonlinear/__init__.py",
+            "trilinos_tpu_torch/nonlinear/base.py",
+            "trilinos_tpu_torch/nonlinear/newton.py",
+            "trilinos_tpu_torch/nonlinear/trust_region.py",
+            "trilinos_tpu_torch/nonlinear/anderson.py",
+            "trilinos_tpu_torch/nonlinear/continuation.py",
+            "trilinos_tpu_torch/nonlinear/integrators.py",
+            "trilinos_tpu_torch/fem/phalanx.py",
+            "trilinos_tpu_torch/piro.py",
+            "trilinos_tpu_torch/optim/__init__.py",
+            "trilinos_tpu_torch/optim/base.py",
+            "trilinos_tpu_torch/optim/bounds.py",
+            "trilinos_tpu_torch/optim/lbfgs.py",
+            "trilinos_tpu_torch/optim/trust_region.py",
+            "trilinos_tpu_torch/optim/auglag.py",
             "tests/torch_dist_tasks.py"} <= names
     for f in files:
         for mod in _imports(f):
@@ -461,7 +480,8 @@ def test_default_device_needs_a_card():
     for fn in (block_entry, cheb_entry, sstep_entry, fused_cg_entry,
                elasticity_entry, bdia_cg_entry, gmres_entry,
                bsr_gmres_entry, mm_block_gmres_entry, uncoupled_amg_entry,
-               komplex_entry, lambda: eigen_entry("LOBPCG"),
+               komplex_entry, lambda: eigen_entry("LOBPCG"), bratu_entry,
+               nonlinear_pde_entry, phalanx_entry, phalanx_amg,
                lambda: dist_pipelined_cg_entry(comm=SerialComm()),
                lambda: dist_amg_entry(comm=SerialComm())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -479,3 +499,172 @@ def test_float32_matmul_precision_is_highest():
     assert trilinos_tpu_torch.__name__ == "trilinos_tpu_torch"
     assert torch.get_float32_matmul_precision() == "highest"
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+# -- the application layer: bratu_entry, nonlinear_pde_entry, phalanx_entry --
+
+BRATU_DIMS = (12, 12, 12)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_bratu(dims=BRATU_DIMS, lam=4.0):
+    """The JAX composition bratu_entry twins: newton_krylov (type2
+    forcing, polynomial line search) on F(u) = A u − λh²·mask·e^u with A
+    the Laplace3D StencilOp through spmv(impl="xla"), right-preconditioned
+    by the structured SaAmg's V-cycle, f64."""
+    from trilinos_tpu.nonlinear import newton_krylov as j_newton
+
+    op = j_laplace3d(*dims, dtype=np.float64, fmt="stencil")
+    m = JSaAmg(op, {"dtype": np.float64}).compute()
+    st = m.state()
+    mask = np.zeros(op.n_rows_pad)
+    mask[:op.n_rows] = 1.0
+    scale = jnp.asarray(lam / (dims[0] + 1) ** 2 * mask)
+    res = j_newton(lambda u: j_spmv(op, u, impl="xla") - scale * jnp.exp(u),
+                   jnp.zeros(op.n_rows_pad),
+                   prec_factory=lambda x: (lambda v: m.apply_state(st, v)),
+                   rtol=1e-10, forcing="type2", linesearch="polynomial")
+    return res
+
+
+def test_bratu_entry_matches_jax():
+    """JFNK 3-D Bratu at 12³, f64: the JAX composition's Newton and GMRES
+    iterations, x to 1e-10 (max |Δ|); the residual's stencil applies and
+    Jacobian actions ran the plain versions (no launch on the CPU)."""
+    from trilinos_tpu_torch.ops.autodiff import LinearApply
+
+    stencil_spmv.launches = dia_spmv.launches = 0
+    jvps = LinearApply.jvp_calls
+    step, (u0, st) = bratu_entry(BRATU_DIMS, dtype=np.float64, device="cpu",
+                                 rtol=1e-10)
+    res = step(u0, st)
+    jres = jax_bratu()
+    assert res.converged and bool(jres.converged)
+    assert res.iters == int(jres.iters)
+    assert res.inner_iters == int(jres.inner_iters)
+    assert np.abs(res.x.numpy() - np.asarray(jres.x)).max() <= 1e-10
+    assert LinearApply.jvp_calls - jvps >= res.inner_iters
+    assert stencil_spmv.launches == 0 and dia_spmv.launches == 0
+    # the positive lower branch, zero on the pad rows
+    n = step.operator.n_rows
+    assert float(res.x[:n].min()) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def jax_nonlinear_pde(nx=24):
+    """examples/nonlinear_pde.py's composition in the JAX package, f64
+    (the example's arrays are float64 under x64): its counts and
+    states."""
+    from trilinos_tpu.galeri import laplace2d as j_laplace2d
+    from trilinos_tpu.nonlinear import continuation as j_cont
+    from trilinos_tpu.nonlinear import integrate_adaptive as j_adapt
+    from trilinos_tpu.nonlinear import newton_krylov as j_newton
+    from trilinos_tpu.ops import formats as jF
+
+    a = j_laplace2d(nx, nx)
+    dev = jF.csr_to_dia(a)
+    n, npad = a.shape[0], dev.n_rows_pad
+    h2 = 1.0 / (nx + 1) ** 2
+    mask = np.zeros(npad)
+    mask[:n] = 1.0
+    mj = jnp.asarray(mask)
+
+    def residual(u, lam):
+        return mj * (j_spmv(dev, u, impl="xla") - h2 * lam * jnp.exp(u) * mj)
+
+    u0 = jnp.zeros(npad)
+    res = j_newton(lambda u: residual(u, 1.0), u0, rtol=0.0, atol=3e-6)
+    path = j_cont(residual, res.x, p0=1.0, p_final=6.5, dp0=0.5,
+                  arclength=True, max_steps=40, newton_rtol=0.0,
+                  newton_atol=1e-5)
+    tr = j_adapt(lambda t, u: mj * (1.0 * jnp.exp(u) * mj
+                                    - j_spmv(dev, u, impl="xla") / h2),
+                 u0, 0.0, 1.0, 0.02, order=2, rtol=1e-5, newton_atol=1e-5)
+    return res, path, tr
+
+
+def test_nonlinear_pde_entry_matches_the_example():
+    """nonlinear_pde_entry at nx = 24, f64, against the example's
+    composition. The steady Newton solve: its counts, x to 1e-10. The
+    example's continuation and march keep its float32 tolerances (Newton
+    atol 1e-5), so a corrector or stage stops wherever its residual first
+    falls below 1e-5, and a rounding difference in GMRES moves that stop by
+    one iteration near the fold or in a late march stage (λ's 5e-7 apart,
+    the march's Newton count one apart here): the continuation's points
+    and rejections and the march's steps and rejections are held equal,
+    the march's Newton iterations to ±1, λ's and states to the Newton atol
+    1e-5."""
+    out = nonlinear_pde_entry(24, dtype=np.float64, device="cpu")
+    res, path, tr = jax_nonlinear_pde()
+    assert out["newton_converged"] and bool(res.converged)
+    assert (out["newton_iters"], out["newton_inner"]) == (
+        int(res.iters), int(res.inner_iters))
+    assert np.abs(out["u_steady"].numpy() - np.asarray(res.x)).max() <= 1e-10
+    assert (out["cont_points"], out["cont_failed"]) == (
+        len(path.params), path.steps_failed)
+    np.testing.assert_allclose(out["lambdas"], path.params, rtol=0,
+                               atol=1e-5)
+    assert abs(out["cont_max_u"] - float(jnp.max(path.xs[-1]))) <= 1e-5
+    assert (out["march_steps"], out["march_rejected"]) == (tr.steps,
+                                                           tr.rejected)
+    assert abs(out["march_newton"] - tr.newton_iters) <= 1
+    assert np.abs(out["u_march"].numpy() - np.asarray(tr.u)).max() <= 1e-5
+    assert out["drift"] < 1e-2  # the example's settling check
+
+
+PHALANX_N = 12
+
+
+@functools.lru_cache(maxsize=None)
+def jax_phalanx(n=PHALANX_N):
+    """The JAX package's JFNK on the nonlinear Poisson DAG, n × n Q1
+    quadrilaterals, unpreconditioned and with the uncoupled SaAmg of
+    poisson_dirichlet's K_ii on the interior rows."""
+    from trilinos_tpu import fem as j_fem
+    from trilinos_tpu.fem.phalanx import FieldManager as JFieldManager
+    from trilinos_tpu.fem.phalanx import PhysicsBlock as JPhysicsBlock
+    from trilinos_tpu.nonlinear import newton_krylov as j_newton
+
+    fm = JFieldManager()
+    fm.add("kappa", provides="kappa_qp", requires="u_qp")(
+        lambda u: 1.0 + u * u)
+    fm.add("flux", provides="flux_qp", requires=("kappa_qp", "grad_u_qp"))(
+        lambda k, g: k[..., None] * g)
+    fm.add("source", provides="source_qp", requires="x_qp")(
+        lambda x: 4.0 * jnp.ones(x.shape[:-1], x.dtype))
+    mesh = j_fem.structured_quad_mesh(n, n)
+    pb = JPhysicsBlock(mesh, dtype=jnp.float64)
+    bnd = pb.boundary_dofs()
+    r = pb.residual_function(fm, dirichlet=bnd)
+    kii, _, interior, _ = j_fem.poisson_dirichlet(
+        mesh, lambda x: np.full(x.shape[:-1], 4.0))
+    amg = JSaAmg(kii, {"dtype": np.float64,
+                       "aggregation: type": "uncoupled"}).compute()
+    st = amg.state()
+    npad = (st["levels"][0]["a"].n_rows_pad if st["levels"]
+            else st["coarse_inv"].shape[0])
+    inner = jnp.asarray(interior)
+
+    def prec(v):
+        z = jnp.zeros(npad).at[:len(interior)].set(v[inner])
+        return v.at[inner].set(amg.apply_state(st, z)[:len(interior)])
+
+    x0 = jnp.zeros(pb.n_dof)
+    return (j_newton(r, x0, rtol=1e-10),
+            j_newton(r, x0, rtol=1e-10, prec_factory=lambda x: prec))
+
+
+@pytest.mark.parametrize("with_amg", [False, True])
+def test_phalanx_entry_matches_jax(with_amg):
+    """phalanx_entry at 12², f64: JFNK through the DAG residual, bare and
+    with the fixed AMG preconditioner (interior rows) — the JAX package's
+    Newton and GMRES counts and x to 1e-10; ‖F‖ ≤ 1e-8."""
+    amg = phalanx_amg(PHALANX_N, device="cpu") if with_amg else None
+    step, (u0, st) = phalanx_entry(PHALANX_N, device="cpu", amg=amg)
+    res = step(u0, st)
+    jres = jax_phalanx()[int(with_amg)]
+    assert res.converged and bool(jres.converged)
+    assert (res.iters, res.inner_iters) == (int(jres.iters),
+                                            int(jres.inner_iters))
+    assert np.abs(res.x.numpy() - np.asarray(jres.x)).max() <= 1e-10
+    assert float(torch.linalg.norm(step.residual(res.x))) <= 1e-8

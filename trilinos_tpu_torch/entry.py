@@ -212,6 +212,32 @@ count CG and GMRES on a ``make_mesh2`` grid, ``md_map_apply`` of a
 9-point stencil and ``md_solve`` on a (2, p/2) ``ProcessGrid``. It raises
 if any of them fails and returns what each produced.
 
+``bratu_entry()``: JFNK Newton (``nonlinear.newton_krylov``, type2
+forcing, polynomial line search) on 3-D Bratu, F(u) = A u − λh²·mask·e^u
+with A the Laplace3D ``StencilOp`` of ``dims``, h² = 1/(nx+1)² and the
+mask 0 on the pad rows (``tests/test_nonlinear.py``'s residual in 3-D);
+every residual applies the stencil and every Jacobian action is a
+``torch.func`` JVP through its derivative rule; the correction solves are
+GMRES(30) right-preconditioned by the structured ``SaAmg`` V-cycle (as in
+``entry()``; ``amg=`` reuses one), stopping at ‖F‖ ≤ rtol·‖F(0)‖;
+``step(u0, state)`` from u0 = 0, with ``step.residual``.
+
+``nonlinear_pde_entry()``: the twin of ``examples/nonlinear_pde.py`` on
+the DIA Laplace2D ``nx``²: the steady Newton solve at λ = 1, pseudo-
+arclength continuation toward the fold (λ 1 → 6.5) and the adaptive
+implicit march of u_t = λe^u − A u/h² to t = 1, with the example's
+tolerances; returns the numbers the example prints (counts, maxima, the
+drift of the march from the steady state) and the states.
+
+``phalanx_entry()``: −div((1+u²)∇u) = 4 with u = 0 on the boundary of the
+unit square, n × n Q1 quadrilaterals, through a ``PhysicsBlock`` and the
+evaluator DAG of ``phalanx_fields()`` (``tests/test_phalanx.py``),
+solved by JFNK at rtol ``PHALANX_RTOL``; with ``amg=`` (``phalanx_amg(n)``:
+uncoupled SA-AMG of ``poisson_dirichlet``'s K_ii, stored as DIA) the
+correction solves are preconditioned by its V-cycle on the interior rows
+and the identity on the Dirichlet rows. ``step(u0, state)``, with
+``step.residual`` and ``step.block``.
+
 Every entry takes ``device`` (``None`` means the CUDA card and raises
 without one); the hierarchy paths also take an already-built hierarchy as
 ``amg=`` so one hierarchy can serve several paths, and their grid, dtype
@@ -231,14 +257,16 @@ import torch
 
 from .device import resolve_device, torch_dtype
 from .eigen import EigenProblem, create_eigensolver
-from .fem import Mesh, poisson_dirichlet, structured_hex_mesh
+from .fem import (FieldManager, Mesh, PhysicsBlock, poisson_dirichlet,
+                  structured_hex_mesh, structured_quad_mesh)
 from .galeri import (elasticity3d, laplace2d, laplace3d, recirc2d,
                      rigid_body_modes)
 from .io import read_hb, read_sparse, write_sparse
 from .ops.bdia_spmv import bdia_plane_solver_op
 from .ops.fe import fe_apply_local
+from .nonlinear import continuation, integrate_adaptive, newton_krylov
 from .ops.formats import (CsrHost, choose_format, csr_to_bdia, csr_to_bsr,
-                          csr_to_ell)
+                          csr_to_dia, csr_to_ell)
 from .ops.komplex import solve_complex
 from .ops.matvec import spmv
 from .precond import BlockStructuredAmg, Ilu0, Relaxation, SaAmg
@@ -961,3 +989,154 @@ def dryrun_multichip(n_ranks: int, device=None, **launch_kw) -> list:
     from .parallel.driver import launch
 
     return launch(dryrun_rank, n_ranks, device=device, **launch_kw)
+
+
+# -- the application layer: NOX/LOCA/Tempus and Phalanx ----------------------
+
+BRATU_LAMBDA = 4.0
+
+
+def bratu_entry(dims=(16, 16, 16), lam=BRATU_LAMBDA, dtype=np.float32,
+                device=None, amg=None, rtol=1e-5):
+    op, m = _hierarchy(dims, dtype, device, amg)
+    n, npad = op.n_rows, op.n_rows_pad
+    h2 = 1.0 / (op.dims[0] + 1) ** 2
+    mask = torch.zeros(npad, dtype=m.dtype, device=m.device)
+    mask[:n] = 1.0
+    scale = lam * h2 * mask
+
+    def residual(u: torch.Tensor) -> torch.Tensor:
+        return spmv(op, u) - scale * torch.exp(u)
+
+    def step(u0: torch.Tensor, st: dict):
+        def prec(v):
+            return m.apply_state(st, v)
+
+        return newton_krylov(residual, u0, prec_factory=lambda x: prec,
+                             rtol=rtol, forcing="type2",
+                             linesearch="polynomial")
+
+    step.residual, step.operator, step.preconditioner = residual, op, m
+    step.h2, step.lam = h2, lam
+    return step, (torch.zeros(npad, dtype=m.dtype, device=m.device),
+                  m.state())
+
+
+NLPDE_ATOL = 1e-5  # the example's continuation and march Newton atol
+NLPDE_STEADY_ATOL = 3e-6  # the example's steady Newton atol
+
+
+def nonlinear_pde_entry(nx=24, dtype=np.float32, device=None) -> dict:
+    dev, dt = resolve_device(device), torch_dtype(dtype)
+    a = csr_to_dia(laplace2d(nx, nx), dtype=dtype, device=dev)
+    n, npad = a.n_rows, a.n_rows_pad
+    h2 = 1.0 / (nx + 1) ** 2
+    mask = torch.zeros(npad, dtype=dt, device=dev)
+    mask[:n] = 1.0
+
+    def residual(u, lam):
+        return mask * (spmv(a, u) - h2 * lam * torch.exp(u) * mask)
+
+    u0 = torch.zeros(npad, dtype=dt, device=dev)
+    res = newton_krylov(lambda u: residual(u, 1.0), u0, rtol=0.0,
+                        atol=NLPDE_STEADY_ATOL)
+    path = continuation(residual, res.x, p0=1.0, p_final=6.5, dp0=0.5,
+                        arclength=True, max_steps=40, newton_rtol=0.0,
+                        newton_atol=NLPDE_ATOL)
+
+    def rhs(t, u):
+        return mask * (1.0 * torch.exp(u) * mask - spmv(a, u) / h2)
+
+    march = integrate_adaptive(rhs, u0, 0.0, 1.0, 0.02, order=2, rtol=1e-5,
+                               newton_atol=NLPDE_ATOL)
+    return {
+        "newton_converged": res.converged, "newton_iters": res.iters,
+        "newton_inner": res.inner_iters, "newton_fnorm": res.fnorm,
+        "newton_max_u": float(torch.max(res.x)),
+        "cont_points": len(path.params), "cont_failed": path.steps_failed,
+        "cont_newton": path.newton_iters,
+        "cont_max_lambda": float(path.params.max()),
+        "cont_max_u": float(torch.max(path.xs[-1])),
+        "march_steps": march.steps, "march_rejected": march.rejected,
+        "march_newton": march.newton_iters,
+        "march_max_u": float(torch.max(march.u)),
+        "drift": float(torch.linalg.norm(march.u - res.x)),
+        "u_steady": res.x, "u_march": march.u, "lambdas": path.params,
+    }
+
+
+PHALANX_SOURCE = 4.0  # -div((1 + u²) grad u) = 4 on the unit square
+
+
+def phalanx_fields() -> FieldManager:
+    """The nonlinear Poisson DAG: κ = 1 + u², flux = κ ∇u, source 4."""
+    fm = FieldManager()
+
+    @fm.add("kappa", provides="kappa_qp", requires="u_qp")
+    def _kappa(u):
+        return 1.0 + u * u
+
+    @fm.add("flux", provides="flux_qp", requires=("kappa_qp", "grad_u_qp"))
+    def _flux(k, g):
+        return k[..., None] * g
+
+    @fm.add("source", provides="source_qp", requires="x_qp")
+    def _source(x):
+        return PHALANX_SOURCE * torch.ones(x.shape[:-1], dtype=x.dtype,
+                                           device=x.device)
+
+    return fm
+
+
+def phalanx_amg(n=8, dtype=np.float64, device=None) -> SaAmg:
+    """Uncoupled SA-AMG of ``poisson_dirichlet``'s K_ii on the n × n Q1
+    quadrilaterals (stored through ``choose_format``: DIA), the fixed
+    preconditioner ``phalanx_entry`` takes as ``amg=``."""
+    dev = resolve_device(device)
+    kii = poisson_dirichlet(structured_quad_mesh(n, n),
+                            lambda x: np.full(x.shape[:-1],
+                                              PHALANX_SOURCE))[0]
+    fine = choose_format(kii, dtype=dtype, device=dev)
+    return SaAmg(kii, {"dtype": dtype, "aggregation: type": "uncoupled",
+                       "fine: matrix-free operator": fine},
+                 device=dev).compute()
+
+
+PHALANX_RTOL = 1e-10  # the JAX test's Newton rtol (tests/test_phalanx.py)
+
+
+def phalanx_entry(n=8, dtype=np.float64, device=None, amg=None):
+    mesh = structured_quad_mesh(n, n)
+    dev = resolve_device(device) if amg is None else amg.device
+    pb = PhysicsBlock(mesh, dtype=dtype, device=dev)
+    bnd = pb.boundary_dofs()
+    residual = pb.residual_function(phalanx_fields(), dirichlet=bnd)
+    interior = np.setdiff1d(np.arange(pb.n_dof), bnd)
+    if amg is not None and amg.fine_op.n_rows != len(interior):
+        raise ValueError(f"the hierarchy's fine level has "
+                         f"{amg.fine_op.n_rows} rows, the mesh "
+                         f"{len(interior)} interior dofs")
+    inner = torch.from_numpy(interior).to(dev)
+    ni = len(interior)
+
+    def step(u0: torch.Tensor, st):
+        prec_factory = None
+        if st is not None:
+            npad = amg.fine_op.n_rows_pad
+
+            def prec(v):
+                # the V-cycle on the interior rows, the identity on the
+                # Dirichlet rows
+                z = torch.zeros(npad, dtype=v.dtype, device=v.device)
+                z[:ni] = v[inner]
+                return v.index_put((inner,), amg.apply_state(st, z)[:ni])
+
+            def prec_factory(x):
+                return prec
+        return newton_krylov(residual, u0, prec_factory=prec_factory,
+                             rtol=PHALANX_RTOL)
+
+    step.residual, step.block, step.boundary = residual, pb, bnd
+    step.preconditioner = amg
+    return step, (torch.zeros(pb.n_dof, dtype=pb.w.dtype, device=dev),
+                  None if amg is None else amg.state())

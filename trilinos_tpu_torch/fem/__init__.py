@@ -1,8 +1,9 @@
 """FE discretization layer (the Intrepid2 + Shards + pamgen-lite analogue).
 
-Counterpart of ``trilinos_tpu/fem`` but ``phalanx.py`` (Phalanx's residual
-DAG, which comes with the nonlinear layer). Every module is a host numpy
-copy: the port imports nothing of the JAX package.
+Counterpart of ``trilinos_tpu/fem``. Every module but ``phalanx.py`` is a
+host numpy copy (the port imports nothing of the JAX package);
+``phalanx.py`` (Phalanx's evaluator DAG and Panzer's physics block) builds
+its workset on the host and assembles residuals with torch on the device.
 
 Reference: packages/intrepid2/src — Discretization/Basis (HGRAD Lagrange
 bases per cell topology, Intrepid2_HGRAD_*_FEM.hpp), Discretization/
@@ -29,6 +30,7 @@ from .mesh import (Mesh, structured_hex_mesh, structured_quad_mesh,
                    structured_tet_mesh, structured_tri_mesh)
 from .assembly import (load_vector, mass_matrix, poisson_dirichlet,
                        stiffness_matrix)
+from .phalanx import Evaluator, FieldManager, PhysicsBlock
 from .mortar import (interface_dofs, mortar_glue, mortar_projection_1d,
                      mortar_saddle)
 from .refine import refine_uniform
@@ -40,6 +42,7 @@ __all__ = [
     "hgrad_transform_grad", "Mesh", "structured_quad_mesh",
     "structured_tri_mesh", "structured_hex_mesh", "structured_tet_mesh",
     "stiffness_matrix", "mass_matrix", "load_vector", "poisson_dirichlet",
+    "Evaluator", "FieldManager", "PhysicsBlock",
     "mortar_projection_1d", "mortar_glue", "mortar_saddle",
     "interface_dofs", "refine_uniform",
 ]

@@ -1,8 +1,10 @@
 """Cell geometry: Jacobians, reference<->physical maps, HGRAD transforms.
 
 Counterpart of ``trilinos_tpu/fem/cell_tools.py``, a copy (the port imports
-nothing of the JAX package) of its host form: the JAX package's device
-form serves Phalanx, which the port does not have yet.
+nothing of the JAX package) of its host form. Phalanx's workset
+(``phalanx.PhysicsBlock``) is built with these host functions, as the JAX
+package's is before it moves the tables to the device, so the port needs no
+device form.
 
 Reference: packages/intrepid2/src/Cell/Intrepid2_CellTools.hpp —
 setJacobian/setJacobianInv/setJacobianDet, mapToPhysicalFrame — and

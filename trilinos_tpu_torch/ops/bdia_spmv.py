@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .autodiff import linear_apply
 from .dispatch import use_kernel
 from .formats import BdiaMatrix
 
@@ -145,13 +146,8 @@ def _launch(a: BdiaMatrix, x: torch.Tensor, x3: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def bdia_spmv(a: BdiaMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x for an interleaved x of shape (n_pad,) or (n_pad, k): the
-    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor. A
-    2-D x goes to :func:`bdia_spmm`. ``bdia_spmv.launches`` counts the
-    kernel launches of single vectors."""
-    if x.ndim == 2:
-        return bdia_spmm(a, x)
+def _spmv_raw(a: BdiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The forward of :func:`bdia_spmv`: one launch or the plain version."""
     x3 = _interleaved(a, x)
     if not use_kernel(x):
         return bdia_spmv_plain(a, x)
@@ -160,26 +156,59 @@ def bdia_spmv(a: BdiaMatrix, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _spmm_raw(a: BdiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The forward of :func:`bdia_spmm` on an interleaved X."""
+    if x.ndim != 2:
+        raise ValueError(f"BDIA SpMM takes X of shape ({a.n_rows_pad}, "
+                         f"k), got {tuple(x.shape)}")
+    x3 = _interleaved(a, x)
+    if not use_kernel(x):
+        return bdia_spmv_plain(a, x)
+    y = _launch(a, x, x3)
+    bdia_spmm.launches += 1
+    return y
+
+
+def _planes_raw(a: BdiaMatrix, xp: torch.Tensor) -> torch.Tensor:
+    """The forward of :func:`bdia_spmm` on packed planes."""
+    x3 = _planes(a, xp)
+    if not use_kernel(xp):
+        return bdia_planes_plain(a, xp)
+    y = _launch(a, xp, x3)
+    bdia_spmm.launches += 1
+    return y
+
+
+def bdia_planes_t_plain(a: BdiaMatrix, xp: torch.Tensor) -> torch.Tensor:
+    """Transpose apply on packed planes (b·k, nbr_pad)."""
+    return pack_planes(a, bdia_spmv_t_plain(a, unpack_planes(a, xp)))
+
+
+def bdia_spmv(a: BdiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for an interleaved x of shape (n_pad,) or (n_pad, k): the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor. A
+    2-D x goes to :func:`bdia_spmm`. Differentiable in x
+    (``ops/autodiff.py``): the JVP applies A to the tangent through the
+    kernel, the VJP is :func:`bdia_spmv_t_plain` (XLA in the JAX package
+    too). ``bdia_spmv.launches`` counts the kernel launches of single
+    vectors."""
+    if x.ndim == 2:
+        return bdia_spmm(a, x)
+    return linear_apply(_spmv_raw, bdia_spmv_t_plain, a, x)
+
+
 def bdia_spmm(a: BdiaMatrix, x: torch.Tensor,
               layout: str = "interleaved") -> torch.Tensor:
     """Y = A·X for an interleaved X of shape (n_pad, k) or, with
     ``layout="planes"``, packed planes of shape (b·k, nbr_pad); Y has X's
     layout. The CUDA kernel for a CUDA tensor, the plain version for a CPU
-    tensor. ``bdia_spmm.launches`` counts kernel launches."""
+    tensor; differentiable in X as :func:`bdia_spmv`.
+    ``bdia_spmm.launches`` counts kernel launches."""
     if layout == "planes":
-        x3, plain = _planes(a, x), bdia_planes_plain
-    elif layout == "interleaved":
-        if x.ndim != 2:
-            raise ValueError(f"BDIA SpMM takes X of shape ({a.n_rows_pad}, "
-                             f"k), got {tuple(x.shape)}")
-        x3, plain = _interleaved(a, x), bdia_spmv_plain
-    else:
-        raise ValueError(f"unknown BDIA layout {layout!r}")
-    if not use_kernel(x):
-        return plain(a, x)
-    y = _launch(a, x, x3)
-    bdia_spmm.launches += 1
-    return y
+        return linear_apply(_planes_raw, bdia_planes_t_plain, a, x)
+    if layout == "interleaved":
+        return linear_apply(_spmm_raw, bdia_spmv_t_plain, a, x)
+    raise ValueError(f"unknown BDIA layout {layout!r}")
 
 
 bdia_spmv.launches = 0

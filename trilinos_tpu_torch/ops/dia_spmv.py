@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .autodiff import linear_apply
 from .dispatch import use_kernel
 from .formats import DiaMatrix
 from .stencil_op import VEC_BYTES, pointer_align
@@ -152,13 +153,8 @@ def _launch(kind: str, a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def dia_spmv(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x for x of shape (n_pad,) or (n_pad, k): the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor. A 2-D x goes to
-    :func:`dia_spmm`. ``dia_spmv.launches`` counts launches of the
-    single-vector kernel."""
-    if x.ndim == 2:
-        return dia_spmm(a, x)
+def _spmv_raw(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The forward of :func:`dia_spmv`: one launch or the plain version."""
     if not use_kernel(x):
         return dia_spmv_plain(a, x)
     if x.ndim != 1 or x.shape[0] != a.n_rows_pad:
@@ -169,10 +165,8 @@ def dia_spmv(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def dia_spmm(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Y = A·X for X of shape (n_pad, k), k ≥ 1, row-major: the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor.
-    ``dia_spmm.launches`` counts kernel launches."""
+def _spmm_raw(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The forward of :func:`dia_spmm`: one launch or the plain version."""
     if not use_kernel(x):
         return dia_spmv_plain(a, x)
     if x.ndim != 2 or x.shape[0] != a.n_rows_pad or not (
@@ -183,6 +177,26 @@ def dia_spmm(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     y = _launch("spmm", a, x)
     dia_spmm.launches += 1
     return y
+
+
+def dia_spmv(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for x of shape (n_pad,) or (n_pad, k): the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor. A 2-D x goes to
+    :func:`dia_spmm`. Differentiable in x (``ops/autodiff.py``): the JVP
+    applies A to the tangent through the kernel, the VJP is
+    :func:`dia_spmv_t_plain` (the JAX package's transpose is XLA too).
+    ``dia_spmv.launches`` counts launches of the single-vector kernel."""
+    if x.ndim == 2:
+        return dia_spmm(a, x)
+    return linear_apply(_spmv_raw, dia_spmv_t_plain, a, x)
+
+
+def dia_spmm(a: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Y = A·X for X of shape (n_pad, k), k ≥ 1, row-major: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor; differentiable
+    in X as :func:`dia_spmv`. ``dia_spmm.launches`` counts kernel
+    launches."""
+    return linear_apply(_spmm_raw, dia_spmv_t_plain, a, x)
 
 
 dia_spmv.launches = 0

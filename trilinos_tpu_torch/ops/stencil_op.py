@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .autodiff import linear_apply
 from .dispatch import use_kernel
 from .formats import round_up
 
@@ -312,13 +313,11 @@ def _check_input(op: StencilOp, x: torch.Tensor) -> None:
         raise ValueError(f"stencil kernel takes ≤ {MAX_TERMS} terms")
 
 
-def stencil_spmv(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x for x of shape (n_pad,) or (n_pad, k): the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor. A 2-D x goes to
-    :func:`stencil_spmm`. ``stencil_spmv.launches`` counts launches of the
-    single-vector kernel."""
+def _spmv_raw(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
+    """The forward of :func:`stencil_spmv`: one launch or the plain
+    version."""
     if x.ndim == 2:
-        return stencil_spmm(op, x)
+        return _spmm_raw(op, x)
     if not use_kernel(x):
         return stencil_spmv_plain(op, x)
     if x.ndim != 1 or x.shape[0] != op.n_rows_pad:
@@ -335,10 +334,9 @@ def stencil_spmv(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def stencil_spmm(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
-    """Y = A·X for X of shape (n_pad, k), k ≥ 1, row-major: the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor.
-    ``stencil_spmm.launches`` counts kernel launches."""
+def _spmm_raw(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
+    """The forward of :func:`stencil_spmm`: one launch or the plain
+    version."""
     if not use_kernel(x):
         return stencil_spmv_plain(op, x)
     if x.ndim != 2 or x.shape[0] != op.n_rows_pad or not (
@@ -353,6 +351,32 @@ def stencil_spmm(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
     _call(f"stencil_spmm_{_TYPES[x.dtype]}", op, x, y, k, plan=plan)
     stencil_spmm.launches += 1
     return y
+
+
+def _spmv_t_raw(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
+    return _spmv_raw(op.transposed(), x)
+
+
+def _spmm_t_raw(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
+    return _spmm_raw(op.transposed(), x)
+
+
+def stencil_spmv(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for x of shape (n_pad,) or (n_pad, k): the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor. A 2-D x goes to the
+    SpMM. Differentiable in x (``ops/autodiff.py``): the JVP applies A to
+    the tangent and the VJP applies ``op.transposed()``, each through the
+    same kernel. ``stencil_spmv.launches`` counts launches of the
+    single-vector kernel."""
+    return linear_apply(_spmv_raw, _spmv_t_raw, op, x)
+
+
+def stencil_spmm(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
+    """Y = A·X for X of shape (n_pad, k), k ≥ 1, row-major: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor; differentiable
+    in X as :func:`stencil_spmv`. ``stencil_spmm.launches`` counts kernel
+    launches."""
+    return linear_apply(_spmm_raw, _spmm_t_raw, op, x)
 
 
 stencil_spmv.launches = 0
